@@ -3,13 +3,24 @@
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from the sources in this checkout,
-holds each kernel against its plain PyTorch version on the card, then
-drives the fleet window path through the user entry points at the
-paper's §6.1 full-scale setting (``DiSketchSystem(backend="fleet")`` +
-``Replayer.run(system, window=8)`` + ``query_flows(merge="fragment")``)
-and checks that it went through the kernels, kept every window stack on
-the device, and answered correctly.
+It builds every CUDA kernel of the port from the sources in this checkout
+(B1 ragged fleet update, B2 single-fragment update, B3 dense fleet
+update), holds each against its plain PyTorch version on the card, then
+drives two paths through the user entry points at the paper's §6.1
+full-scale setting, for cs and cms:
+
+* the fleet window path: ``DiSketchSystem`` + ``Replayer.run(system,
+  window=8)`` + ``query_flows(merge="fragment")`` on the device (B1);
+* the per-epoch path: ``calibrate_rho_target``, then ``DiSketchSystem`` +
+  ``Replayer.run(system)`` epoch by epoch with the default ragged layout
+  (B1) and with ``layout="dense"`` (B3), the loop-of-kernels baseline
+  ``fleet_update_loop`` on one epoch (B2), and ``query_flows`` with the
+  default subepoch merge for DiSketch and DISCO.
+
+Each path runs with the kernels' launch counters set to 0 just before it
+and read just after, and the script checks that it went through its
+kernels, that the dense, ragged and loop counters are bit-identical, and
+that the answers are right.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -71,6 +82,53 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _packet_bytes(n_slots: int, n_live: int) -> int:
+    """Bytes an update kernel must read from a packet array: every slot's
+    value (4 B), and the key and timestamp (8 B) of live packets only, as
+    the kernels skip value-0 padding once its value is read."""
+    return 4 * n_slots + 8 * n_live
+
+
+def _profiled(fn, name: str):
+    """One call of ``fn`` (after one warm-up call) under torch.profiler:
+    ``(wall ms, device ms of the kernels whose name holds name, their
+    launches)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    ks = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    return (wall_ms, sum(e.self_device_time_total for e in ks) / 1e3,
+            sum(e.count for e in ks))
+
+
+def _counters():
+    """The launch counters of the port's three kernel wrappers."""
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.kernels.sketch_update import ops
+
+    return {"fleet_ragged": FK.fleet_update_ragged,
+            "sketch_update": ops.sketch_update,
+            "fleet_dense": FK.fleet_update}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _random_csr(rng, n_prow, n_levels, n_sub_choices, widths, blk=256,
@@ -166,6 +224,97 @@ def kernel_phase(dev) -> float:
     return worst
 
 
+def kernel_phase_single(dev) -> float:
+    """B2 against its plain version on the card: widths up to 262144
+    (above the 65536 hash wrap), n_sub 1..256, cs and cms, a UnivMon level
+    row and a §4.4 row, packet counts that are not blk multiples."""
+    import torch
+
+    from repro_torch.kernels.sketch_update import ops
+
+    rng = np.random.default_rng(11)
+    cases = [  # width, n_sub, level, mitigation, signed, packets
+        (123974, 1, 0, False, True, 300_001),
+        (262144, 8, 0, False, True, 200_003),
+        (65537, 32, 0, False, False, 100_019),
+        (3728, 256, 0, False, False, 150_000),
+        (7748, 4, 3, False, True, 90_007),
+        (26102, 16, 0, True, True, 120_011),
+        (1000, 2, 0, False, True, 777),
+    ]
+    worst = 0.0
+    for width, n_sub, level, mit, signed, n in cases:
+        keys = (rng.zipf(1.3, n) % 50_000).astype(np.uint32) \
+            * np.uint32(2654435761)
+        ts = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+        vals = rng.integers(1, 4, n).astype(np.float32)
+        kw = dict(width=width, n_sub=n_sub, log2_te=LOG2_TE,
+                  col_seed=int(rng.integers(2 ** 31)),
+                  sign_seed=int(rng.integers(2 ** 31)),
+                  sub_seed=int(rng.integers(2 ** 31)), level=level,
+                  mitigation=mit, signed=signed, device=dev)
+        got = ops.sketch_update(keys, vals, ts, **kw)
+        plain = ops.sketch_update(keys, vals, ts, backend="ref", **kw)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        worst = max(worst, err)
+        ok = torch.equal(got, plain)
+        _log(f"kernel  sketch_update width={width:6d} n_sub={n_sub:3d} "
+             f"level={level} mit={int(mit)} signed={int(signed)} "
+             f"packets={n:6d} equal={ok} max_abs_err={err}")
+        if not ok:
+            raise AssertionError(f"sketch_update differs from its plain "
+                                 f"version at width={width} n_sub={n_sub}")
+    return worst
+
+
+def kernel_phase_dense(dev) -> float:
+    """B3 against its plain version on the card: random rectangles with
+    heterogeneous widths (one above 65536) and n_sub, empty rows."""
+    import torch
+
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    rng = np.random.default_rng(13)
+    worst = 0.0
+    for signed, n_frags, p_max, n_choices in ((True, 20, 32768, [1, 2, 8]),
+                                              (False, 16, 8192,
+                                               [1, 4, 64, 256])):
+        keys = rng.integers(0, 2 ** 32, (n_frags, p_max),
+                            dtype=np.uint64).astype(np.uint32)
+        ts = rng.integers(0, 2 ** 32, (n_frags, p_max),
+                          dtype=np.uint64).astype(np.uint32)
+        lens = rng.integers(0, p_max, n_frags)
+        lens[0] = 0
+        vals = ((np.arange(p_max)[None, :] < lens[:, None])
+                * rng.integers(1, 4, (n_frags, p_max))).astype(np.float32)
+        params = np.zeros((n_frags, FK.N_PARAMS), np.int32)
+        params[:, :3] = rng.integers(0, 2 ** 31, (n_frags, 3))
+        n_sub = rng.choice(n_choices, n_frags)
+        params[:, FK.PARAM_WIDTH] = rng.choice(
+            [233, 3728, 33815, 70001, 123974], n_frags)
+        params[:, FK.PARAM_N_SUB] = n_sub
+        params[:, FK.PARAM_LOG2_N_SUB] = np.log2(n_sub).astype(np.int32)
+        kw = dict(n_sub_max=int(n_sub.max()),
+                  width_max=int(params[:, FK.PARAM_WIDTH].max()),
+                  log2_te=LOG2_TE, signed=signed)
+        targs = _to_device((keys, vals, ts, params,
+                            np.zeros(0, np.int32)), dev)[:4]
+        got = FK.fleet_update(*targs, **kw)
+        plain = FK.fleet_update_ref(*targs, **kw)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        worst = max(worst, err)
+        ok = torch.equal(got, plain)
+        _log(f"kernel  fleet_dense   {'cs' if signed else 'cms':3s} "
+             f"{n_frags}x{p_max} n_sub {sorted(set(n_sub.tolist()))} "
+             f"out={tuple(got.shape)} equal={ok} max_abs_err={err}")
+        if not ok:
+            raise AssertionError("fleet_dense differs from its plain version")
+        del got, plain
+    return worst
+
+
 def _window_groups(fleet, rep, e0):
     """The grouped launches of window ``e0`` exactly as the fleet runner
     makes them: ``[(args, kw)]`` per distinct n_sub."""
@@ -218,15 +367,10 @@ def _smallest_path(fleet, e0, paths):
     return path, dense, rows
 
 
-def main_path(dev):
-    """The fleet window path at the §6.1 setting, cs then cms.  Returns a
-    dict of what the kernel line needs."""
-    import torch
-
-    from repro_torch.core.disketch import DiSketchSystem
-    from repro_torch.core.query import fleet_query_window
-    from repro_torch.kernels.sketch_update import fleet as FK
-    from repro_torch.net.simulator import Replayer, rmse
+def build_scenario() -> dict:
+    """The §6.1 workload, its replayer and the per-switch memories, shared
+    by both paths (data made anew from the seeds in every run)."""
+    from repro_torch.net.simulator import Replayer
     from repro_torch.net.topology import FatTree
     from repro_torch.net.traffic import gen_workload, gini_memories
 
@@ -248,8 +392,23 @@ def main_path(dev):
          f"per epoch), widths {min(widths)}..{max(widths)}; built in "
          f"{time.perf_counter() - t0:.1f} s")
     sel = wl.path_len == 5
-    keys, truth = wl.keys[sel], wl.sizes[sel]
-    paths = [p for p, s in zip(wl.paths, sel) if s]
+    return dict(wl=wl, rep=rep, mems=mems, events=events,
+                keys=wl.keys[sel], truth=wl.sizes[sel],
+                paths=[p for p, s in zip(wl.paths, sel) if s])
+
+
+def main_path(dev, sc):
+    """The fleet window path at the §6.1 setting, cs then cms.  Returns a
+    dict of what the kernel line needs."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.core.query import fleet_query_window
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+
+    rep, mems, events = sc["rep"], sc["mems"], sc["events"]
+    keys, truth, paths = sc["keys"], sc["truth"], sc["paths"]
     epochs = list(range(N_EPOCHS))
     n_windows = -(-N_EPOCHS // WINDOW)
     result = {"launches": 0, "max_abs_err": 0.0}
@@ -257,18 +416,20 @@ def main_path(dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         system = DiSketchSystem(mems, kind, rho_target=RHO[kind],
-                                log2_te=LOG2_TE, backend="fleet")
+                                log2_te=LOG2_TE)
         fleet = system.fleet
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        FK.fleet_update_ragged.launches = 0
+        reset_counts()
         h0 = time.perf_counter()
         start.record()
-        rep.run(system, window=WINDOW)          # <- the main path
+        rep.run(system, window=WINDOW)          # <- the window path
         end.record()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - h0
-        launches = FK.fleet_update_ragged.launches
+        counts = read_counts()
+        launches = counts["fleet_ragged"]
+        assert counts["sketch_update"] == counts["fleet_dense"] == 0, counts
         result["launches"] += launches
         window_ms = start.elapsed_time(end) / n_windows
         expected = sum(len(np.unique(fleet._params_log[e0][:, FK.PARAM_N_SUB]))
@@ -339,8 +500,283 @@ def main_path(dev):
     return result
 
 
-def profile_replay(mems, rep):
-    """One more cs replay (same inputs as the main path) under
+def _n_trajectory(n_log):
+    """How many fragments run at each subepoch count, epoch by epoch, with
+    runs of equal epochs merged: ``e0-e1 {n: fragments}``."""
+    runs = []
+    for e, ns in enumerate(n_log):
+        hist = dict(sorted(zip(*np.unique(list(ns.values()),
+                                          return_counts=True))))
+        hist = {int(k): int(v) for k, v in hist.items()}
+        if runs and runs[-1][2] == hist:
+            runs[-1][1] = e
+        else:
+            runs.append([e, e, hist])
+    return "; ".join(f"{a}-{b} {h}" for a, b, h in runs)
+
+
+def _epoch_ns(system, e):
+    """The ``ns`` that epoch ``e`` ran at (Eq. 6 after epoch e - 1)."""
+    return system.n_log[e - 1] if e else {sw: 1 for sw in system.ns}
+
+
+def _replay(rep, system):
+    """``Replayer.run(system)`` with the launch counters reset just
+    before and read just after; returns (counts, host s, device ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    h0 = time.perf_counter()
+    start.record()
+    rep.run(system)                              # <- the per-epoch path
+    end.record()
+    torch.cuda.synchronize()
+    return read_counts(), time.perf_counter() - h0, start.elapsed_time(end)
+
+
+def epoch_path(dev, sc):
+    """The per-epoch path at the §6.1 setting, cs then cms: calibration,
+    the ragged (B1) and dense (B3) replays, the B2 loop on the epoch with
+    the most subepochs, and subepoch-merge queries for DiSketch and
+    DISCO.  Returns what the kernel line needs."""
+    import torch
+
+    from repro_torch.core.disketch import (DiscoSystem, DiSketchSystem,
+                                           calibrate_rho_target)
+    from repro_torch.core.fleet import build_params, dispatch_ragged_grouped
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+
+    rep, mems, events = sc["rep"], sc["mems"], sc["events"]
+    keys, truth, paths = sc["keys"], sc["truth"], sc["paths"]
+    epochs = list(range(N_EPOCHS))
+    res = {"ragged": 0, "dense": 0, "loop": 0, "max_abs_err": 0.0}
+    for kind in ("cs", "cms"):
+        c0 = time.perf_counter()
+        rho = calibrate_rho_target(mems, kind,
+                                   rep.epoch_stream(N_EPOCHS // 2), LOG2_TE)
+        assert abs(rho - RHO[kind]) <= 0.005, (kind, rho, RHO[kind])
+        _log(f"epoch   {kind}: calibrate_rho_target = {rho!r} (the "
+             f"reference's {RHO[kind]} to its rounding) in "
+             f"{time.perf_counter() - c0:.2f} s")
+
+        # ragged (B1); keep_stacked keeps each epoch's groups on the card
+        # so the device query plane can be held to the record plane below
+        torch.cuda.reset_peak_memory_stats()
+        system = DiSketchSystem(mems, kind, rho_target=RHO[kind],
+                                log2_te=LOG2_TE,
+                                fleet_kwargs={"keep_stacked": True})
+        counts, host_s, dev_ms = _replay(rep, system)
+        peak = torch.cuda.max_memory_allocated()
+        expected = sum(len(set(_epoch_ns(system, e).values()))
+                       for e in epochs)
+        assert counts["fleet_ragged"] == expected > 0, (counts, expected)
+        assert counts["fleet_dense"] == counts["sketch_update"] == 0, counts
+        res["ragged"] += counts["fleet_ragged"]
+        _log(f"epoch   {kind} ragged: launches {counts} (expected "
+             f"{expected}: one per distinct n per epoch); update "
+             f"{dev_ms / N_EPOCHS:.3f} ms/epoch on the device timeline "
+             f"(CUDA events; {events / (dev_ms / 1e3):.4g} packet-switch "
+             f"events/s), host {host_s:.2f} s for {N_EPOCHS} epochs; peak "
+             f"device memory {peak} B")
+        _log(f"epoch   {kind} n after each epoch (epochs: {{n: "
+             f"fragments}}): {_n_trajectory(system.n_log)}")
+
+        # dense (B3): records and n trajectory bit-identical to ragged
+        torch.cuda.reset_peak_memory_stats()
+        dense = DiSketchSystem(mems, kind, rho_target=RHO[kind],
+                               log2_te=LOG2_TE,
+                               fleet_kwargs={"layout": "dense"})
+        counts_d, host_d, dev_ms_d = _replay(rep, dense)
+        peak_d = torch.cuda.max_memory_allocated()
+        assert counts_d["fleet_dense"] == N_EPOCHS, counts_d
+        assert counts_d["fleet_ragged"] == counts_d["sketch_update"] == 0
+        res["dense"] += counts_d["fleet_dense"]
+        assert dense.n_log == system.n_log, "dense n trajectory != ragged"
+        for e in epochs:
+            for sw in mems:
+                a, b = dense.records[e][sw], system.records[e][sw]
+                assert a.n == b.n and np.array_equal(a.counters, b.counters), \
+                    f"{kind}: dense record ({e}, {sw}) != ragged"
+        assert not dense.fleet._window_bufs
+        _log(f"epoch   {kind} dense: launches {counts_d}; update "
+             f"{dev_ms_d / N_EPOCHS:.3f} ms/epoch on the device timeline, "
+             f"host {host_d:.2f} s; peak device memory {peak_d} B; records "
+             f"and n trajectory == ragged in all {N_EPOCHS} epochs")
+
+        # B2 loop on the epoch with the most subepochs
+        e_star = max(epochs, key=lambda e: (max(_epoch_ns(system, e)
+                                                .values()), -e))
+        ns = _epoch_ns(system, e_star)
+        fleet = system.fleet
+        params = build_params(fleet.fragments, e_star, ns, fleet.frag_order)
+        packet = rep.epoch_packet(e_star, fleet.frag_order)
+        rect = packet.densify(fleet.blk)
+        kw = dict(n_sub_max=max(ns.values()),
+                  width_max=int(fleet.widths.max()), log2_te=LOG2_TE,
+                  signed=kind == "cs")
+        trect = _to_device(rect + (params, np.zeros(0, np.int32)), dev)[:4]
+        reset_counts()
+        loop = FK.fleet_update_loop(*trect, device=dev, **kw)  # <- B2 path
+        torch.cuda.synchronize()
+        counts_l = read_counts()
+        assert counts_l["sketch_update"] == len(params) > 0, counts_l
+        assert counts_l["fleet_ragged"] == counts_l["fleet_dense"] == 0
+        res["loop"] += counts_l["sketch_update"]
+        b3 = FK.fleet_update(*trect, **kw)
+        plain = FK.fleet_update_ref(*trect, **kw)
+        loop_plain = FK.fleet_update_loop(*trect, backend="ref", device=dev,
+                                          **kw)
+        torch.cuda.synchronize()
+        err = max(float((loop - loop_plain).abs().max()),
+                  float((b3 - plain).abs().max()))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        assert torch.equal(loop, loop_plain), "B2 loop != its plain version"
+        assert torch.equal(b3, plain), "B3 != its plain version"
+        assert torch.equal(loop, b3), "B2 loop != B3 on the sampled epoch"
+        groups = dispatch_ragged_grouped(params, [packet], log2_te=LOG2_TE,
+                                         signed=kind == "cs", blk=fleet.blk,
+                                         device=dev)
+        for rows, c in groups:
+            idx = torch.as_tensor(rows, device=dev)
+            part = b3[idx, :c.shape[2], :c.shape[3]]
+            assert torch.equal(c[0], part), "B1 groups != B3 on the epoch"
+        for i, sw in enumerate(fleet.frag_order):
+            rec = system.records[e_star][sw]
+            assert np.array_equal(
+                rec.counters, loop[i, :rec.n, :rec.counters.shape[1]]
+                .cpu().numpy().astype(np.int64)), "record != B2 loop"
+        res.setdefault("timing", {})[kind] = dict(
+            epoch=e_star, trect=trect, kw=kw, params=params,
+            live=int((rect[1] != 0).sum()))
+        _log(f"epoch   {kind} B2 loop on epoch {e_star} (n_sub_max "
+             f"{kw['n_sub_max']}, {len(params)} rows, rectangle "
+             f"{rect[0].shape}): launches {counts_l}; == its plain version, "
+             f"== B3 (== its plain version), == the {len(groups)} grouped "
+             f"B1 launches, == the ragged run's records")
+        del loop, loop_plain, b3, plain, groups
+
+        # queries: the subepoch merge on the records, for DiSketch and DISCO
+        q0 = time.perf_counter()
+        est = system.query_flows(keys, paths, epochs)
+        q_s = time.perf_counter() - q0
+        assert est.shape == keys.shape and np.isfinite(est).all()
+        frag_dev = system.query_flows(keys, paths, epochs, merge="fragment")
+        assert system.fleet.has_device_window(epochs)
+        frag_rec = dense.query_flows(keys, paths, epochs, merge="fragment")
+        np.testing.assert_allclose(frag_dev, frag_rec, rtol=1e-6, atol=1e-6)
+        disco = DiscoSystem(mems, kind, rho_target=RHO[kind],
+                            log2_te=LOG2_TE)
+        counts_o, host_o, _ = _replay(rep, disco)
+        assert counts_o["fleet_ragged"] == N_EPOCHS, counts_o
+        res["ragged"] += counts_o["fleet_ragged"]
+        q1 = time.perf_counter()
+        est_o = disco.query_flows(keys, paths, epochs)
+        q_o = time.perf_counter() - q1
+        assert est_o.shape == keys.shape and np.isfinite(est_o).all()
+        _log(f"epoch   {kind} queries (all {len(keys)} 5-hop flows, "
+             f"{N_EPOCHS} epochs, subepoch merge): DiSketch RMSE {rmse(est, truth):.4f} in "
+             f"{q_s:.2f} s; DISCO RMSE {rmse(est_o, truth):.4f} in "
+             f"{q_o:.2f} s (DISCO replay {host_o:.2f} s, launches "
+             f"{counts_o}); fragment merge: RMSE {rmse(frag_dev, truth):.4f}"
+             f" on the device == the record plane (1e-6)")
+        del system, dense, disco, fleet
+        torch.cuda.empty_cache()
+    profile_replay(mems, rep, window=1)
+    return res
+
+
+def epoch_kernel_timing(res, dev):
+    """Times of B2 (the loop, one launch per row) and B3 at the shapes of
+    the sampled cs epoch, with their plain versions and bounds.  B2's loop
+    is timed at the wrapper's grid and at this port's first one (chunks of
+    at least 4 096 packets), each with its kernels' own device time from
+    torch.profiler beside the loop's."""
+    import torch
+
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.kernels.sketch_update import ops
+    from repro_torch.kernels.sketch_update.kernel import kernel_lib, max_smem
+    from repro_torch.kernels.sketch_update.ref import sketch_update_ref
+
+    t = res["timing"]["cs"]
+    keys, vals, ts, params = t["trect"]
+    kw = t["kw"]
+    n_frags, p_max = keys.shape
+    out = {}
+    # B3: one launch over the rectangle
+    ms = _time_ms(lambda: FK._launch_dense(keys, vals, ts, params, **kw))
+    plain_ms = _time_ms(lambda: FK.fleet_update_ref(keys, vals, ts, params,
+                                                    **kw), reps=3, warmup=1)
+    out_bytes = n_frags * kw["n_sub_max"] * kw["width_max"] * 4
+    in_bytes = _packet_bytes(n_frags * p_max, t["live"]) + params.numel() * 4
+    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    ops_s = OPS_PER_PAIR * t["live"] / OPS_PER_S
+    out["fleet_dense"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(bytes_s, ops_s),
+        bound_by="bytes" if bytes_s >= ops_s else "operations")
+    # B2: one launch per parameter row, as the loop makes them
+    p = t["params"]
+    rows = []
+    for r in range(len(p)):
+        rows.append(dict(width=int(p[r, FK.PARAM_WIDTH]),
+                         n_sub=int(p[r, FK.PARAM_N_SUB]), log2_te=LOG2_TE,
+                         col_seed=int(p[r, FK.PARAM_COL_SEED]),
+                         sign_seed=int(p[r, FK.PARAM_SIGN_SEED]),
+                         sub_seed=int(p[r, FK.PARAM_SUB_SEED]),
+                         signed=kw["signed"], level=0, mitigation=False))
+
+    def loop_kernel():
+        for r, a in enumerate(rows):
+            ops._launch(keys[r], vals[r], ts[r], **a)
+
+    def loop_plain():
+        for r, a in enumerate(rows):
+            sketch_update_ref(keys[r], vals[r], ts[r], **a)
+
+    smem = max_smem(kernel_lib("sketch_update", *ops._ARGS),
+                    "sketch_update", keys.device.index)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    shipped = ops.MIN_CHUNK
+    for min_chunk in (shipped, 4096):
+        ops.MIN_CHUNK = min_chunk
+        try:
+            ctas = [-(-a["width"] // w_blk) * n_chunks for a in rows
+                    for w_blk, n_chunks, _ in [ops.launch_geometry(
+                        p_max, a["width"], a["n_sub"], smem, sms)]]
+            loop_ms = _time_ms(loop_kernel, reps=5, warmup=1)
+            wall_ms, kern_ms, n_k = _profiled(loop_kernel,
+                                              "sketch_update_kernel")
+        finally:
+            ops.MIN_CHUNK = shipped
+        if min_chunk == shipped:
+            ms = loop_ms
+        _log(f"timing  sketch_update loop, MIN_CHUNK {min_chunk}: "
+             f"{len(rows)} launches of {min(ctas)}..{max(ctas)} CTAs "
+             f"({sum(ctas)} in all, {sms} SMs); loop {loop_ms:.3f} ms (CUDA "
+             f"events); under torch.profiler the loop's wall {wall_ms:.3f} "
+             f"ms, its {n_k} kernels {kern_ms:.3f} ms on the device "
+             f"({1e3 * kern_ms / max(n_k, 1):.2f} us each)")
+    plain_ms = _time_ms(loop_plain, reps=2, warmup=1)
+    live_rows = (vals != 0).sum(dim=1).tolist()
+    bytes_s = sum(_packet_bytes(p_max, n) + a["n_sub"] * a["width"] * 4
+                  for a, n in zip(rows, live_rows)) / HBM_BYTES_PER_S
+    out["sketch_update"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(bytes_s, ops_s),
+        bound_by="bytes" if bytes_s >= ops_s else "operations")
+    for name, v in out.items():
+        _log(f"timing  {name} cs epoch {t['epoch']} ({n_frags}x{p_max} "
+             f"rectangle, n_sub_max {kw['n_sub_max']}): kernel "
+             f"{v['ms']:.3f} ms, plain version {v['plain_ms']:.3f} ms, "
+             f"bound {v['bound_ms']:.3f} ms ({v['bound_by']})")
+    return out
+
+
+def profile_replay(mems, rep, window=WINDOW):
+    """One more cs replay (same inputs as the path it repeats) under
     torch.profiler: the device's busy share of the replay's wall time, the
     kernels that fill it, and the torch ops that take host time.  What the
     profiler does not see (numpy packing, Python) is the rest."""
@@ -350,12 +786,12 @@ def profile_replay(mems, rep):
     from repro_torch.core.disketch import DiSketchSystem
 
     system = DiSketchSystem(mems, "cs", rho_target=RHO["cs"],
-                            log2_te=LOG2_TE, backend="fleet")
+                            log2_te=LOG2_TE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         h0 = time.perf_counter()
-        rep.run(system, window=WINDOW)
+        rep.run(system, window=window)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - h0
     events = prof.key_averages()
@@ -371,7 +807,9 @@ def profile_replay(mems, rep):
     top_dev = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:5]
     top_cpu = sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:5]
     torch_cpu_ms = sum(e.self_cpu_time_total for e in on_host) / 1e3
-    _log(f"profile cs replay, {-(-N_EPOCHS // WINDOW)} windows: wall "
+    what = (f"{-(-N_EPOCHS // window)} windows of {window}" if window > 1
+            else f"{N_EPOCHS} epochs, per-epoch control")
+    _log(f"profile cs replay, {what}: wall "
          f"{wall_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms "
          f"({100 * device_ms / (wall_s * 1e3):.2f}% of wall), torch ops on "
          f"the host {torch_cpu_ms:.1f} ms, the rest numpy/Python")
@@ -399,10 +837,11 @@ def kernel_timing(system, rep, dev):
         plain_ms += _time_ms(lambda: FK.fleet_update_ragged_ref(*targs, **kw),
                              reps=3, warmup=1)
         keys, vals, _, params, bf = args
+        live = int((vals != 0).sum())
         out_bytes = params.shape[0] * kw["n_sub_max"] * kw["width_max"] * 4
-        in_bytes = 12 * len(keys) + params.nbytes + bf.nbytes
+        in_bytes = _packet_bytes(len(keys), live) + params.nbytes + bf.nbytes
         bound_bytes_s += (in_bytes + out_bytes) / HBM_BYTES_PER_S
-        pairs = int((vals != 0).sum()) * kw["n_levels"]
+        pairs = live * kw["n_levels"]
         bound_ops_s += OPS_PER_PAIR * pairs / OPS_PER_S
     bound_by = "bytes" if bound_bytes_s >= bound_ops_s else "operations"
     return dict(ms=ms, plain_ms=plain_ms,
@@ -423,7 +862,6 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
         from repro_torch.kernels import build
-        from repro_torch.kernels.sketch_update import fleet as FK
     except ImportError as e:
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
@@ -442,27 +880,37 @@ def main() -> int:
             for line in info["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     _log(f"ptxas   {line.strip()}")
-        worst = kernel_phase(dev)
-        res = main_path(dev)
+        worst = {"fleet_ragged": kernel_phase(dev),
+                 "sketch_update": kernel_phase_single(dev),
+                 "fleet_dense": kernel_phase_dense(dev)}
+        sc = build_scenario()
+        res = main_path(dev, sc)
         timing = res["timing"]
         _log(f"timing  fleet_ragged one cs window ({timing['groups']} "
              f"launches): kernel {timing['ms']:.3f} ms, plain version "
              f"{timing['plain_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms "
              f"({timing['bound_by']})")
+        ep = epoch_path(dev, sc)
+        ep_timing = epoch_kernel_timing(ep, dev)
+        src = "src/repro_torch/kernels/sketch_update/csrc/"
+        ref = "src/repro/kernels/sketch_update/"
+        entries = [
+            ("fleet_ragged", "fleet.py:297", res["launches"] + ep["ragged"],
+             max(worst["fleet_ragged"], res["max_abs_err"]), timing),
+            ("sketch_update", "kernel.py:419", ep["loop"],
+             max(worst["sketch_update"], ep["max_abs_err"]),
+             ep_timing["sketch_update"]),
+            ("fleet_dense", "fleet.py:160", ep["dense"],
+             max(worst["fleet_dense"], ep["max_abs_err"]),
+             ep_timing["fleet_dense"]),
+        ]
         line = {"kernels": [{
-            "name": "fleet_ragged",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/sketch_update/csrc/"
-                      "fleet_ragged.cu",
-            "replaces": "src/repro/kernels/sketch_update/fleet.py:297",
-            "launches": res["launches"],
-            "max_abs_err": max(worst, res["max_abs_err"]),
-            "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": ref + replaces, "launches": launches,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-        }]}
+        } for name, replaces, launches, err, t in entries]}
         _log(json.dumps(line))
         _log(f"gpu     {smi}")
         _log(f"done    in {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
 """Error equalization (paper §4.2): PEB estimation + the n-control loop
-(port of the fleet parts of ``repro/core/equalize.py``).
+(port of ``repro/core/equalize.py`` without the churn re-equalization).
 
 Each fragment estimates its probabilistic error bound (PEB) from its own
 counters (Eq. 4), averages it over the epoch's subepochs (Eq. 5), and
@@ -11,7 +11,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fragment import EpochRecords
+
 N_MAX = 1 << 10  # safety cap on subepochs (bounds record volume)
+
+
+def peb_row(counters: np.ndarray, kind: str) -> float:
+    """Eq. 4: estimated PEB of one subepoch record from its counters."""
+    c = counters.astype(np.float64)
+    w = c.shape[-1]
+    if kind in ("cs", "um"):
+        return float(np.sqrt((c * c).sum() / w))
+    return float(np.abs(c).sum() / w)
+
+
+def peb_epoch(rec: EpochRecords) -> float:
+    """Eq. 5: mean estimated PEB over the epoch's subepochs."""
+    counters = rec.counters
+    if rec.kind == "um":
+        counters = counters[0]  # level 0 sees the full stream (§4.2, UnivMon)
+    return float(np.mean([peb_row(counters[s], rec.kind)
+                          for s in range(rec.n)]))
 
 
 def peb_fleet(stacked: np.ndarray, ns: np.ndarray, widths: np.ndarray,

@@ -1,14 +1,23 @@
-"""Fleet execution engine: one batched device dispatch per multi-epoch
-*window* (port of the window path of ``repro/core/fleet.py``).
+"""Fleet execution engine: one batched device dispatch per network epoch,
+or per multi-epoch *window* (port of ``repro/core/fleet.py``).
 
 Every switch's epoch stream is packed into one flat blk-aligned CSR
-stream (``pack_csr``), and all (epoch, fragment[, level]) rows of a
-window are updated by ``fleet_update_ragged`` — one launch per distinct
-subepoch count (``dispatch_ragged_grouped``).  The counters stay on the
-device: the overflow peak and the §4.2 PEBs are computed there, and the
-window's ``(E, R, n_sub_max, width_max)`` stack answers point and window
-queries on the device (``kernels.sketch_query``) until the record plane
-asks for a host copy, which happens once per window (``WindowRecords``).
+stream (``pack_csr``), and all (epoch, fragment[, level]) rows are updated
+by ``fleet_update_ragged`` — one launch per distinct subepoch count
+(``dispatch_ragged_grouped``).  The counters stay on the device: the
+overflow peak and the §4.2 PEBs are computed there.
+
+* ``run_epoch`` (per-epoch control, the paper's own loop) dispatches one
+  epoch and copies only each fragment's live ``[:n, :width]`` block to the
+  host, as the int64 ``EpochRecords`` the record plane reads; the padded
+  ``(n_rows, n_sub_max, width_max)`` stack never exists.  With
+  ``layout="dense"`` (cs/cms, per-epoch only) the epoch goes through the
+  reference's dense rectangle and ``fleet_update`` instead; that stack
+  lives on the device for the one epoch and is freed.
+* ``run_window`` keeps the window's ``(E, R_g, n_g, w_g)`` row groups
+  resident: they answer point and window queries on the device
+  (``kernels.sketch_query``) until the record plane asks for a host copy,
+  once per window (``WindowRecords``).
 
 UnivMon levels are virtual fragment rows of the parameter table, and the
 per-key level id and §4.4 single-hop flag ride the high bits of the
@@ -16,9 +25,8 @@ packed timestamp (``fold_packet_flags``), exactly as in the reference, so
 counters are bit-identical to it for cs, cms and um, with or without
 mitigation.
 
-Not ported yet: per-epoch dispatch (``run_epoch``), the dense oracle
-layout, device meshes, churn (dead/lost fragments), XOR parity and the
-export hooks.
+Not ported yet: device meshes, churn (dead/lost fragments), XOR parity
+and the export hooks.
 """
 from __future__ import annotations
 
@@ -80,6 +88,27 @@ class FleetPacket:
                            tuple(self.frag_order[i] for i in idx),
                            None if self.single_hop is None
                            else cat(self.single_hop))
+
+    def densify(self, blk: int = 256) -> Tuple[np.ndarray, np.ndarray,
+                                               np.ndarray]:
+        """``(n_frags, p_max)`` keys/vals/ts rectangles, value-0 padded,
+        with ``p_max`` the hottest segment rounded up to a power of two
+        (>= blk) and then to a ``blk`` multiple.  A transient, not cached:
+        under skewed loads it is far larger than the packed form."""
+        lens = self.seg_lengths()
+        p_max = max(int(lens.max(initial=0)), blk)
+        p_max = 1 << int(np.ceil(np.log2(p_max)))
+        p_max += (-p_max) % blk
+        f = self.n_frags
+        keys = np.zeros((f, p_max), np.uint32)
+        vals = np.zeros((f, p_max), np.float32)
+        ts = np.zeros((f, p_max), np.uint32)
+        for i in range(f):
+            lo, hi = int(self.offsets[i]), int(self.offsets[i + 1])
+            keys[i, :hi - lo] = self.keys[lo:hi]
+            vals[i, :hi - lo] = self.values[lo:hi]
+            ts[i, :hi - lo] = self.ts[lo:hi]
+        return keys, vals, ts
 
 
 def pack_streams(streams: Dict[int, "SwitchStream"],
@@ -356,26 +385,27 @@ class WindowRecords(Mapping):
 
 
 class FleetEpochRunner:
-    """Batched replacement for the per-switch loop, window mode.
+    """Batched replacement for the per-switch loop.
 
-    Holds the fleet's static configuration, packs each window's streams
-    into the ragged CSR layout, dispatches the grouped update kernel, and
-    keeps the window stack on ``device`` (default ``cuda``) for the
-    device query plane.  UnivMon fleets run every level as a virtual
-    fragment row (homogeneous ``n_levels``/``level_seed``); §4.4
+    Holds the fleet's static configuration, packs each epoch's or
+    window's streams into the ragged CSR layout (``layout="dense"`` keeps
+    the reference's rectangle, cs/cms per-epoch only), dispatches the
+    update kernels on ``device`` (default ``cuda``), and returns records
+    and PEBs.  Window stacks stay on the device for the device query
+    plane; ``keep_stacked=True`` also keeps each ``run_epoch``'s counters
+    there (as a one-epoch window), so ``point_query``/``window_query``
+    cover per-epoch runs too.  UnivMon fleets run every level as a
+    virtual fragment row (homogeneous ``n_levels``/``level_seed``); §4.4
     mitigation rides a per-row param flag and the folded single-hop ts
     bit.
     """
 
     def __init__(self, fragments: Dict[int, FragmentConfig], log2_te: int,
                  *, blk: int = 256, device=None, layout: str = "ragged",
+                 keep_stacked: bool = False,
                  parity_groups: Optional[Sequence[Sequence[int]]] = None,
                  mesh=None):
-        if layout == "dense":
-            raise NotImplementedError(
-                "layout='dense' (the reference's oracle rectangle) is not "
-                "ported; the port runs the ragged CSR layout")
-        if layout != "ragged":
+        if layout not in ("ragged", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet")
@@ -414,8 +444,15 @@ class FleetEpochRunner:
             raise ValueError(
                 f"fleet §4.4 mitigation requires log2_te <= {SH_SHIFT}, "
                 f"got {log2_te}")
+        if layout == "dense" and (self.n_levels > 1 or self.mitigation):
+            raise ValueError(
+                "layout='dense' (the reference's oracle rectangle) supports "
+                "cs/cms without mitigation only; use the default "
+                "layout='ragged'")
         self.log2_te = log2_te
         self.blk = blk
+        self.layout = layout
+        self.keep_stacked = keep_stacked
         self.device = resolve_device(device)
         self.frag_order: Tuple[int, ...] = tuple(sorted(fragments))
         self.widths = np.array([fragments[sw].width
@@ -483,8 +520,13 @@ class FleetEpochRunner:
 
     def _dispatch(self, params: np.ndarray,
                   packets: Sequence[FleetPacket]) -> StackGroups:
-        """The grouped update launches over the param table's rows; returns
-        the window's row groups on the device."""
+        """The update launches over the param table's rows; returns the
+        window's row groups on the device."""
+        if self.layout == "dense":
+            if len(packets) != 1:
+                raise ValueError("dense layout is per-epoch only; window "
+                                 "dispatch requires layout='ragged'")
+            return self._dispatch_dense(params, packets[0])
         # The cached epoch packets are shared across systems: folding
         # returns new packets and leaves them untouched.
         packets = [fold_packet_flags(p, self.log2_te,
@@ -497,6 +539,34 @@ class FleetEpochRunner:
             signed=self.kind in ("cs", "um"), blk=self.blk,
             n_levels=self.n_levels, with_mitigation=self.mitigation,
             device=self.device)
+
+    def _dispatch_dense(self, params: np.ndarray,
+                        packet: FleetPacket) -> StackGroups:
+        """One epoch through the dense rectangle (kernel B3), cut into the
+        row groups the ragged dispatch returns; the padded stack is freed
+        when this returns."""
+        n_row = params[:, FK.PARAM_N_SUB].astype(np.int64)
+        w_row = params[:, FK.PARAM_WIDTH].astype(np.int64)
+        keys, vals, ts = packet.densify(self.blk)
+        stack = FK.fleet_update(
+            keys, vals, ts, params, n_sub_max=int(n_row.max(initial=1)),
+            width_max=int(w_row.max(initial=4)), log2_te=self.log2_te,
+            signed=self.kind in ("cs", "um"), blk=self.blk,
+            device=self.device)
+        groups: StackGroups = []
+        for n in np.unique(n_row):
+            rows = np.flatnonzero(n_row == n)
+            idx = torch.as_tensor(rows, device=stack.device)
+            groups.append((rows, stack[idx, :n, :w_row[rows].max()][None]))
+        return groups
+
+    def _check_peak(self, groups: StackGroups) -> None:
+        """The f32 exact-integer contract on every counter, one pass per
+        group on the device and one scalar to the host."""
+        peaks = [torch.maximum(hi, -lo) for lo, hi in
+                 (torch.aminmax(c) for _, c in groups if c.numel())]
+        if peaks:
+            check_output_peak(float(torch.stack(peaks).max()))
 
     def _register_window(self, epoch0: int, params_by_epoch: List[np.ndarray],
                          groups: StackGroups, shape: Tuple[int, ...]
@@ -520,6 +590,51 @@ class FleetEpochRunner:
                     counters[e, ::L], n_arr[frag], self.widths[frag],
                     self.kind).cpu().numpy()
         return pebs
+
+    def run_epoch(self, epoch: int, ns: Dict[int, int],
+                  streams: Dict[int, "SwitchStream"],
+                  packet: Optional[FleetPacket] = None,
+                  ) -> Tuple[Dict[int, EpochRecords], Dict[int, float]]:
+        """One epoch, ``ns`` per fragment: the update launches, the peak and
+        the PEBs on the device, then each fragment's live ``[:n, :width]``
+        block (``[:L, :n, :width]`` for UnivMon) copied to the host as its
+        int64 record.  ``packet`` (a prepacked ``FleetPacket``) skips
+        packing ``streams``."""
+        if packet is None:
+            packet = pack_streams(streams, self.frag_order)
+        if packet.frag_order != self.frag_order:
+            raise ValueError("packet fragment order differs from the "
+                             "fleet's")
+        self._check_input_mass([packet])
+        L = self.n_levels
+        params = build_params(self.fragments, epoch, ns, self.frag_order)
+        n_arr = params[::L, FK.PARAM_N_SUB].astype(np.int64)
+        groups = self._dispatch(params, [packet])
+        self._check_peak(groups)
+        pebs_arr = self._window_pebs(groups, n_arr, 1)[0]
+        recs: Dict[int, EpochRecords] = {}
+        for rows, counters in groups:
+            for j in range(0, len(rows), L):
+                i = int(rows[j]) // L
+                cfg = self.fragments[self.frag_order[i]]
+                n = int(n_arr[i])
+                c = counters[0, j:j + L, :n, :cfg.width].cpu().numpy()
+                recs[self.frag_order[i]] = EpochRecords(
+                    cfg.frag_id, epoch, n,
+                    c.astype(np.int64) if cfg.kind == "um"
+                    else c[0].astype(np.int64),
+                    cfg.kind, cfg.mitigation, cfg.base_seed)
+        # A reprocessed epoch drops any earlier retention of it: a stale
+        # buffer would answer queries with the previous run's counters.
+        self._window_bufs.pop(epoch, None)
+        self._params_log.pop(epoch, None)
+        if self.keep_stacked:
+            self._register_window(
+                epoch, [params], groups,
+                (1, len(params), int(n_arr.max(initial=1)),
+                 int(self.widths.max(initial=4))))
+        pebs = {sw: float(pebs_arr[i]) for i, sw in enumerate(self.frag_order)}
+        return {sw: recs[sw] for sw in self.frag_order}, pebs
 
     def run_window(self, epoch0: int, ns: Dict[int, int],
                    packets: Sequence[FleetPacket],
@@ -545,10 +660,7 @@ class FleetEpochRunner:
         params = np.concatenate(params_by_epoch)
         n_arr = params[:rows_per_epoch:L, FK.PARAM_N_SUB].astype(np.int64)
         groups = self._dispatch(params, packets)
-        peaks = [torch.maximum(hi, -lo) for lo, hi in
-                 (torch.aminmax(c) for _, c in groups if c.numel())]
-        if peaks:                  # one pass per group, no |stack| copy
-            check_output_peak(float(torch.stack(peaks).max()))
+        self._check_peak(groups)
         pebs_all = self._window_pebs(groups, n_arr, e_count)
         buf = self._register_window(
             epoch0, params_by_epoch, groups,
@@ -602,8 +714,9 @@ class FleetEpochRunner:
         (the groups cut to the queried epochs)."""
         missing = [e for e in epochs if e not in self._window_bufs]
         if missing:
-            raise KeyError(f"epochs {missing} not processed (run them with "
-                           "run_window first)")
+            raise KeyError(f"epochs {missing} not retained (process them "
+                           "with run_window, or construct with "
+                           "keep_stacked=True for per-epoch runs)")
         host_epochs: List[int] = []
         by_buf: Dict[int, Tuple[_WindowBuffer, List[int]]] = {}
         for e in epochs:

@@ -1,5 +1,18 @@
-"""Central querying (paper §4.3) over fleet window stacks (port of the
-fleet routes of ``repro/core/query.py``).
+"""Central querying (paper §4.3): composite sketches from subepoch
+records, and the fleet routes over window stacks (port of
+``repro/core/query.py``).
+
+The record plane (``query_epoch``, ``query_window``) is what the
+controller runs on the records the switches export.  Per epoch:
+  Step 1 — the caller retrieves the records of the fragments on the
+  queried flow's path (all flows in one call share a path).
+  Step 2 — every record is queried as a single-row sketch, its estimate is
+  split over ``N_R = n_m / n`` *normalized* subepochs, the
+  per-normalized-subepoch estimates are merged across fragments (min for
+  CMS, median for CS/UnivMon), temporal blind spots are filled with the
+  mean of the observed normalized subepochs, and the slot estimates are
+  summed into the epoch estimate.
+It is host numpy, vectorized over the queried keys, as in the reference.
 
 ``fleet_query_window`` is the numpy path for windows whose stack the
 record plane has already copied to the host; ``fleet_query_window_device``
@@ -11,12 +24,154 @@ window (O_Q = Sum(O)).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..kernels.sketch_update import fleet as FK
 from . import hashing as H
+from .fragment import EpochRecords, level_seed_mix
+
+
+def _raw_estimates(rec: EpochRecords, keys: np.ndarray,
+                   level: Optional[int]):
+    """One record-set as single-row sketches: its counters (the level's,
+    for UnivMon), each key's column and its sign (1.0 for cms)."""
+    col_seed, sign_seed, _ = rec.seeds()
+    counters = rec.counters
+    if rec.kind == "um":
+        assert level is not None
+        counters = counters[level]
+        col_seed = level_seed_mix(col_seed, level)
+        sign_seed = level_seed_mix(sign_seed, level)
+    w = counters.shape[-1]
+    col = H.hash_mod(keys, col_seed, w)
+    signed = rec.kind in ("cs", "um")
+    sgn = H.hash_sign(keys, sign_seed).astype(np.float64) if signed else 1.0
+    return counters, col, sgn
+
+
+def _fill_layer(layer: np.ndarray, raw: np.ndarray, sub: np.ndarray,
+                n_r: int, sel: Optional[np.ndarray] = None) -> None:
+    """Spread raw estimates over their N_R normalized-subepoch slots."""
+    n_keys = layer.shape[0]
+    o = raw / n_r
+    rows = np.arange(n_keys)
+    cols = sub.astype(np.int64)[:, None] * n_r + np.arange(n_r)[None, :]
+    if sel is None:
+        layer[rows[:, None], cols] = o[:, None]
+    else:
+        layer[rows[sel][:, None], cols[sel]] = o[sel][:, None]
+
+
+def query_epoch(records: Sequence[EpochRecords], keys: np.ndarray,
+                kind: str, single_hop: Optional[np.ndarray] = None,
+                level: Optional[int] = None,
+                merge: str = "subepoch") -> np.ndarray:
+    """Epoch estimate for each key from the on-path fragments' records.
+
+    merge="subepoch": the Fig. 9 / §4.3 Step-2 procedure — normalize all
+    records into n_m subepoch slots, merge per slot (min/median), fill
+    temporal blind spots with the mean of covered slots, sum.
+
+    merge="fragment": each fragment's record is scaled proportionally
+    (x n, §1) into an epoch-level estimate, then min/median is taken
+    across fragments.
+    """
+    keys = np.asarray(keys, dtype=np.uint32)
+    n_keys = len(keys)
+    if n_keys == 0 or not records:
+        return np.zeros(n_keys)
+    if merge == "fragment":
+        return _query_epoch_fragment_merge(records, keys, kind, single_hop,
+                                           level)
+    if merge != "subepoch":
+        raise ValueError(f"unknown merge {merge!r}; expected 'subepoch' or "
+                         "'fragment'")
+    n_m = max(r.n for r in records)
+
+    layers: List[np.ndarray] = []
+    for rec in records:
+        counters, col, sgn = _raw_estimates(rec, keys, level)
+        _, _, sub_seed = rec.seeds()
+        sub = H.hash_pow2(keys, sub_seed, rec.n)
+        n_r = n_m // rec.n
+        raw = counters[sub, col].astype(np.float64) * sgn
+        layer = np.full((n_keys, n_m), np.nan)
+        _fill_layer(layer, raw, sub, n_r)
+        layers.append(layer)
+        # §4.4 mitigation: single-hop flows carry a second subepoch record.
+        if rec.mitigation and rec.n >= 2 and single_hop is not None \
+                and single_hop.any():
+            sub2 = (sub + rec.n // 2) & (rec.n - 1)
+            raw2 = counters[sub2, col].astype(np.float64) * sgn
+            layer2 = np.full((n_keys, n_m), np.nan)
+            _fill_layer(layer2, raw2, sub2, n_r, sel=single_hop)
+            layers.append(layer2)
+
+    est = np.stack(layers)  # (n_layers, n_keys, n_m)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", category=RuntimeWarning)
+        if kind == "cms":
+            merged = np.nanmin(est, axis=0)
+        else:
+            merged = np.nanmedian(est, axis=0)
+        # Temporal blind spots: extrapolate from the mean of observed slots.
+        fill = np.nanmean(merged, axis=1, keepdims=True)
+    fill = np.where(np.isnan(fill), 0.0, fill)
+    merged = np.where(np.isnan(merged), fill, merged)
+    return merged.sum(axis=1)
+
+
+def _query_epoch_fragment_merge(records, keys, kind, single_hop, level):
+    ests = np.empty((len(records), len(keys)))
+    for i, rec in enumerate(records):
+        counters, col, sgn = _raw_estimates(rec, keys, level)
+        _, _, sub_seed = rec.seeds()
+        sub = H.hash_pow2(keys, sub_seed, rec.n)
+        raw = counters[sub, col].astype(np.float64) * sgn
+        if rec.mitigation and rec.n >= 2 and single_hop is not None \
+                and single_hop.any():
+            sub2 = (sub + rec.n // 2) & (rec.n - 1)
+            raw2 = counters[sub2, col].astype(np.float64) * sgn
+            raw = np.where(single_hop, (raw + raw2) / 2.0, raw)
+        ests[i] = raw * rec.n  # proportional scaling to the epoch (§1)
+    if kind == "cms":
+        return ests.min(axis=0)
+    return np.median(ests, axis=0)
+
+
+def window_observability(records_by_epoch: Sequence[Sequence],
+                         ) -> Tuple[int, float]:
+    """``(observable_epochs, scale)`` of a record-plane query window: how
+    many epochs contribute at least one record, and the §4.3 blind-epoch
+    extrapolation factor E / E_observable (``inf`` when every epoch is
+    blind)."""
+    n = len(records_by_epoch)
+    obs = sum(1 for records in records_by_epoch if records)
+    return obs, (n / obs if obs else float("inf"))
+
+
+def query_window(records_by_epoch: Sequence[Sequence[EpochRecords]],
+                 keys: np.ndarray, kind: str,
+                 single_hop: Optional[np.ndarray] = None,
+                 level: Optional[int] = None,
+                 merge: str = "subepoch",
+                 chunk: int = 16384) -> np.ndarray:
+    """Sum of per-epoch estimates over a query window (O_Q = Sum(O)),
+    ``chunk`` keys at a time."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    out = np.zeros(len(keys))
+    for start in range(0, len(keys), chunk):
+        sl = slice(start, start + chunk)
+        sh = single_hop[sl] if single_hop is not None else None
+        for records in records_by_epoch:
+            if records:
+                out[sl] += query_epoch(records, keys[sl], kind,
+                                       single_hop=sh, level=level,
+                                       merge=merge)
+    return out
 
 
 def fleet_query_epoch(stacked: np.ndarray, col_seeds: np.ndarray,

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled on its
 own into a shared library for ``sm_90a`` (Hopper).  Builds happen on
 first use, on the machine with the card, into ``build/repro_torch/`` at
 the root of the checkout (listed in ``.gitignore``); a library's file
-name carries a digest of its source, so an edited source is rebuilt and
-never mixed up with a stale library.  ``build_all`` starts one ``nvcc``
+name carries a digest of its source and of every header it includes
+(``#include "..."``, followed recursively), so an edited source or
+shared header is rebuilt and never mixed up with a stale library.  ``build_all`` starts one ``nvcc``
 per missing library and waits for all of them.
 """
 from __future__ import annotations
@@ -14,16 +15,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent
 #: Library name -> CUDA source, relative to this directory.
 SOURCES: Dict[str, str] = {
     "fleet_ragged": "sketch_update/csrc/fleet_ragged.cu",
+    "sketch_update": "sketch_update/csrc/sketch_update.cu",
+    "fleet_dense": "sketch_update/csrc/fleet_dense.cu",
 }
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,10 +46,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path) -> List[Path]:
+    """``path`` and every local header it includes, recursively, each once
+    and in a fixed order."""
+    seen: List[Path] = []
+    todo = [path.resolve()]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [(p.parent / m.decode()).resolve()
+                 for m in _INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (_PKG / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1()
+    for p in _sources(_PKG / SOURCES[name]):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -1,30 +1,35 @@
-"""Fleet update: every (epoch, fragment[, level]) row of a window from one
-flat CSR packet stream (port of ``repro/kernels/sketch_update/fleet.py``'s
-ragged path).
+"""Fleet update: every (epoch, fragment[, level]) row of a window or epoch
+in one launch (port of ``repro/kernels/sketch_update/fleet.py``).
 
-``fleet_update_ragged`` keeps the reference's contract: a flat
-``(n_blocks * blk,)`` stream whose non-decreasing ``block_frag`` map names
-each block's packet row, an ``(n_rows, N_PARAMS)`` int32 parameter table
-with ``n_levels`` virtual rows per packet row, and a
-``(n_rows, n_sub_max, width_max)`` f32 result with exact zeros outside
-each row's live ``[:n_sub, :width]`` block.
+``fleet_update_ragged`` (kernel B1, ``csrc/fleet_ragged.cu``) keeps the
+reference's ragged contract: a flat ``(n_blocks * blk,)`` stream whose
+non-decreasing ``block_frag`` map names each block's packet row, an
+``(n_rows, N_PARAMS)`` int32 parameter table with ``n_levels`` virtual
+rows per packet row, and a ``(n_rows, n_sub_max, width_max)`` f32 result
+with exact zeros outside each row's live ``[:n_sub, :width]`` block.
 
-On CUDA tensors it launches the hand-written kernel in
-``csrc/fleet_ragged.cu`` (which replaces the TPU's Pallas kernel) and
-raises if the launch fails; on CPU tensors it runs
-``fleet_update_ragged_ref``, the plain PyTorch version of the same
-arithmetic that the tests and ``chip_smoke.py`` hold the kernel to.
+``fleet_update`` (kernel B3, ``csrc/fleet_dense.cu``) takes one epoch as
+the reference's dense ``(n_frags, p_max)`` rectangle instead, cs/cms only
+(the level and §4.4 terms are compiled out, as in the reference).
+``fleet_update_loop`` is the loop-of-kernels baseline: one single-fragment
+``ops.sketch_update`` (kernel B2) per parameter row.
+
+On CUDA tensors each wrapper launches its hand-written kernel (which
+replaces the TPU's Pallas kernel) and raises if the launch fails; on CPU
+tensors it runs the plain PyTorch version of the same arithmetic
+(``*_ref``, built on ``ref.row_contrib``) that the tests and
+``chip_smoke.py`` hold the kernel to.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from ...core.hashing import hash_mod_torch, hash_u32_torch
-from .kernel import LVL_FIELD_MASK, LVL_SHIFT, SH_SHIFT
+from .kernel import (check_launch, kernel_lib, launch_w_blk, max_smem,
+                     pad_to)
+from .ref import row_contrib
 
 # Columns of the per-row int32 parameter table.
 PARAM_COL_SEED = 0
@@ -37,7 +42,6 @@ PARAM_LEVEL = 6   # UnivMon virtual level row id (0 for cs/cms)
 PARAM_MIT = 7     # §4.4 single-hop mitigation enabled for this row
 N_PARAMS = 8
 
-_MASK32 = 0xFFFFFFFF
 _MAX_GRID_Y = 65535
 
 
@@ -54,6 +58,48 @@ def _as_int32_bits(x, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _host_i32(x) -> np.ndarray:
+    """A small int32 table (params, block map) on the host, for checks."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x, np.int32)
+
+
+def input_device(device, *xs) -> torch.device:
+    """The device a wrapper runs on: its tensor inputs' (which must agree
+    with ``device`` when both are given), else ``device`` (default
+    ``cuda``) for numpy inputs."""
+    from ...device import resolve_device
+
+    tensors = [x for x in xs if isinstance(x, torch.Tensor)]
+    dev = tensors[0].device if tensors else resolve_device(device)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"inputs on {dev} but device={device!r}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_on(dev: torch.device, **tensors) -> None:
+    for name, x in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, expected {dev}")
+
+
+def packet_tensors(keys, vals, ts, dev: torch.device, ndim: int):
+    """keys/vals/ts as the kernels read them on ``dev``: uint32 words as
+    int32 bit patterns, values as float32; all of one ``ndim`` shape."""
+    keys = _as_int32_bits(keys, dev)
+    ts = _as_int32_bits(ts, dev)
+    vals = _as_tensor(vals, torch.float32, np.float32, dev)
+    _check_on(dev, keys=keys, vals=vals, ts=ts)
+    if keys.ndim != ndim or vals.shape != keys.shape \
+            or ts.shape != keys.shape:
+        raise ValueError(f"keys, vals and ts must be {ndim}-d and of one "
+                         "shape")
+    return keys, vals, ts
+
+
 def _as_tensor(x, dtype, np_dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         if x.dtype != dtype:
@@ -68,10 +114,9 @@ def _validate(params: np.ndarray, block_frag: np.ndarray, n_packets: int, *,
               n_levels: int) -> None:
     """Host-side checks of what the kernel trusts: shapes, the CSR map, and
     every row's n_sub / width inside the output it writes."""
+    _validate_params(params, n_sub_max=n_sub_max, width_max=width_max,
+                     log2_te=log2_te)
     n_rows = params.shape[0]
-    if params.ndim != 2 or params.shape[1] != N_PARAMS:
-        raise ValueError(f"params must be (n_rows, {N_PARAMS}), got "
-                         f"{params.shape}")
     if n_levels < 1 or n_rows % n_levels:
         raise ValueError(f"{n_rows} rows are not a multiple of "
                          f"n_levels={n_levels}")
@@ -89,6 +134,15 @@ def _validate(params: np.ndarray, block_frag: np.ndarray, n_packets: int, *,
                              "owning at least one block")
     elif n_prow:
         raise ValueError("every packet row must own at least one block")
+
+
+def _validate_params(params: np.ndarray, *, n_sub_max: int, width_max: int,
+                     log2_te: int) -> None:
+    """Every row's n_sub / width inside the output the kernel writes."""
+    if params.ndim != 2 or params.shape[1] != N_PARAMS:
+        raise ValueError(f"params must be (n_rows, {N_PARAMS}), got "
+                         f"{params.shape}")
+    n_rows = params.shape[0]
     if not 0 <= log2_te <= 31:
         raise ValueError(f"log2_te={log2_te} outside [0, 31]")
     n = params[:, PARAM_N_SUB].astype(np.int64)
@@ -118,72 +172,30 @@ def fleet_update_ragged_ref(keys: torch.Tensor, vals: torch.Tensor,
     out = torch.zeros((n_rows, n_sub_max, width_max), dtype=torch.float32,
                       device=dev)
     live = torch.nonzero(vals != 0).squeeze(1)       # skip padding packets
-    k = keys.to(torch.int64)[live] & _MASK32
-    t = ts.to(torch.int64)[live] & _MASK32
-    v = vals[live]
     prow = block_frag.to(torch.int64)[live // blk]
     L = n_levels
     rows = (prow[:, None] * L + torch.arange(L, device=dev)[None, :]
             ).reshape(-1)
-    k = k.repeat_interleave(L)
-    t = t.repeat_interleave(L)
-    v = v.repeat_interleave(L)
     p = params.to(torch.int64)[rows]
-    n_mask = p[:, PARAM_N_SUB] - 1
-    sub_pkt = (t >> (log2_te - p[:, PARAM_LOG2_N_SUB])) & n_mask
-    sub_flow = hash_u32_torch(k, p[:, PARAM_SUB_SEED]) & n_mask
-    monitored = sub_pkt == sub_flow
-    if with_mitigation:
-        sub2 = (sub_flow + ((n_mask + 1) >> 1)) & n_mask
-        single_hop = (t >> SH_SHIFT) != 0
-        monitored |= (p[:, PARAM_MIT] != 0) & single_hop & (sub_pkt == sub2)
-    if n_levels > 1:
-        monitored &= ((t >> LVL_SHIFT) & LVL_FIELD_MASK) >= p[:, PARAM_LEVEL]
-    col = hash_mod_torch(k, p[:, PARAM_COL_SEED], p[:, PARAM_WIDTH])
-    if signed:
-        sign = 1 - 2 * (hash_u32_torch(k, p[:, PARAM_SIGN_SEED]) & 1)
-        v = v * sign.to(torch.float32)
-    sel = torch.nonzero(monitored).squeeze(1)
-    out.index_put_((rows[sel], sub_pkt[sel], col[sel]), v[sel],
-                   accumulate=True)
+    sel, sub, col, v = row_contrib(
+        keys[live].repeat_interleave(L), vals[live].repeat_interleave(L),
+        ts[live].repeat_interleave(L), **_row_kw(p), log2_te=log2_te,
+        signed=signed, level=p[:, PARAM_LEVEL] if n_levels > 1 else None,
+        mit=p[:, PARAM_MIT] if with_mitigation else None)
+    out.index_put_((rows[sel], sub[sel], col[sel]), v[sel], accumulate=True)
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from ..build import load
-
-    lib = load("fleet_ragged")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fleet_ragged_launch.argtypes = [vp] * 6 + [ci] * 10 + [vp]
-    lib.fleet_ragged_launch.restype = ci
-    lib.fleet_ragged_max_smem.argtypes = [ctypes.POINTER(ci)]
-    lib.fleet_ragged_max_smem.restype = ci
-    return lib
+def _row_kw(p: torch.Tensor) -> dict:
+    """``row_contrib``'s hashing parameters from gathered table rows."""
+    return dict(col_seed=p[:, PARAM_COL_SEED], sign_seed=p[:, PARAM_SIGN_SEED],
+                sub_seed=p[:, PARAM_SUB_SEED], width=p[:, PARAM_WIDTH],
+                n_sub=p[:, PARAM_N_SUB], log2_n_sub=p[:, PARAM_LOG2_N_SUB])
 
 
-@functools.lru_cache(maxsize=None)
-def _max_smem(device_index: int) -> int:
-    del device_index  # the C query reads the current device
-    n = ctypes.c_int(0)
-    err = _lib().fleet_ragged_max_smem(ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed with error {err}")
-    return n.value
-
-
-def launch_w_blk(n_sub_max: int, width_max: int, smem_bytes: int) -> int:
-    """Columns per CTA: the largest power of two whose ``n_sub_max x
-    w_blk`` f32 tile fits the shared-memory limit, capped at the width's
-    power-of-two ceiling."""
-    w = 1
-    cap = 1 << max(int(width_max) - 1, 0).bit_length()
-    while w * 2 <= cap and n_sub_max * w * 2 * 4 <= smem_bytes:
-        w *= 2
-    if n_sub_max * w * 4 > smem_bytes:
-        raise ValueError(f"n_sub_max={n_sub_max} does not fit one column "
-                         f"in {smem_bytes} B of shared memory")
-    return w
+_VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_RAGGED_ARGS = [_VP] * 6 + [_CI] * 10 + [_VP]
+_DENSE_ARGS = [_VP] * 5 + [_CI, _CLL] + [_CI] * 5 + [_VP]
 
 
 def fleet_update_ragged(keys, vals, ts, params, block_frag, *,
@@ -208,40 +220,23 @@ def fleet_update_ragged(keys, vals, ts, params, block_frag, *,
     device.  CUDA tensors launch the kernel (or raise); CPU tensors run
     ``fleet_update_ragged_ref``.
     """
-    from ...device import resolve_device
-
-    tensors = [x for x in (keys, vals, ts, params, block_frag)
-               if isinstance(x, torch.Tensor)]
-    dev = tensors[0].device if tensors else resolve_device(device)
-    if device is not None and torch.device(device).type != dev.type:
-        raise ValueError(f"inputs on {dev} but device={device!r}")
-    params_h = (params.cpu().numpy() if isinstance(params, torch.Tensor)
-                else np.asarray(params, np.int32))
-    bf_h = (block_frag.cpu().numpy() if isinstance(block_frag, torch.Tensor)
-            else np.asarray(block_frag, np.int32))
+    dev = input_device(device, keys, vals, ts, params, block_frag)
+    params_h = _host_i32(params)
+    bf_h = _host_i32(block_frag)
     n_packets = int(keys.shape[0])
     _validate(params_h, bf_h, n_packets, n_sub_max=n_sub_max,
               width_max=width_max, log2_te=log2_te, blk=blk,
               n_levels=n_levels)
-    keys = _as_int32_bits(keys, dev)
-    ts = _as_int32_bits(ts, dev)
-    vals = _as_tensor(vals, torch.float32, np.float32, dev)
+    keys, vals, ts = packet_tensors(keys, vals, ts, dev, ndim=1)
     params = _as_tensor(params, torch.int32, np.int32, dev)
     block_frag = _as_tensor(block_frag, torch.int32, np.int32, dev)
-    for name, x in (("keys", keys), ("vals", vals), ("ts", ts),
-                    ("params", params), ("block_frag", block_frag)):
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, expected {dev}")
-    if keys.ndim != 1 or vals.shape != keys.shape or ts.shape != keys.shape:
-        raise ValueError("keys, vals and ts must be flat and of one length")
+    _check_on(dev, params=params, block_frag=block_frag)
     kw = dict(n_sub_max=n_sub_max, width_max=width_max, log2_te=log2_te,
               signed=signed, blk=blk, n_levels=n_levels,
               with_mitigation=with_mitigation)
     if dev.type == "cpu":
         return fleet_update_ragged_ref(keys, vals, ts, params, block_frag,
                                        **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     return _launch(keys.contiguous(), vals.contiguous(), ts.contiguous(),
                    params.contiguous(), block_frag.contiguous(), **kw)
 
@@ -261,22 +256,164 @@ def _launch(keys, vals, ts, params, block_frag, *, n_sub_max, width_max,
         block_frag, torch.arange(n_prow + 1, dtype=torch.int32, device=dev)
     ).to(torch.int32)
     with torch.cuda.device(dev):
-        w_blk = launch_w_blk(n_sub_max, width_max, _max_smem(dev.index or 0))
-        if -(-width_max // w_blk) > _MAX_GRID_Y:
-            raise ValueError(f"width_max={width_max} needs more than "
-                             f"{_MAX_GRID_Y} width blocks of {w_blk}")
+        lib = kernel_lib("fleet_ragged", *_RAGGED_ARGS)
+        w_blk = _width_blocking(n_sub_max, width_max,
+                                max_smem(lib, "fleet_ragged", dev.index))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().fleet_ragged_launch(
+        err = lib.fleet_ragged_launch(
             keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
             params.data_ptr(), row_start.data_ptr(), out.data_ptr(),
             n_rows, n_levels, n_sub_max, width_max, w_blk, blk, log2_te,
             int(signed), int(n_levels > 1), int(with_mitigation), stream)
-    if err:
-        raise RuntimeError(f"fleet_ragged kernel launch failed: CUDA error "
-                           f"{err}")
+    check_launch(err, "fleet_ragged")
     fleet_update_ragged.launches += 1
     return out
 
 
 #: Kernel launches made by ``fleet_update_ragged`` (CUDA tensors only).
 fleet_update_ragged.launches = 0
+
+
+def _width_blocking(n_sub_max: int, width_max: int, smem: int) -> int:
+    """``launch_w_blk`` for a grid whose y axis walks the width blocks."""
+    w_blk = launch_w_blk(n_sub_max, width_max, smem)
+    if -(-width_max // w_blk) > _MAX_GRID_Y:
+        raise ValueError(f"width_max={width_max} needs more than "
+                         f"{_MAX_GRID_Y} width blocks of {w_blk}")
+    return w_blk
+
+
+# --- dense rectangle (kernel B3) -------------------------------------------
+
+
+def fleet_update_ref(keys: torch.Tensor, vals: torch.Tensor,
+                     ts: torch.Tensor, params: torch.Tensor, *,
+                     n_sub_max: int, width_max: int, log2_te: int,
+                     signed: bool) -> torch.Tensor:
+    """Plain PyTorch version of the dense update: every packet of row ``f``
+    hashed under table row ``f`` (no level or §4.4 term), then one
+    ``index_put_(accumulate=True)``."""
+    n_frags = params.shape[0]
+    out = torch.zeros((n_frags, n_sub_max, width_max), dtype=torch.float32,
+                      device=keys.device)
+    live = torch.nonzero(vals.reshape(-1) != 0).squeeze(1)
+    rows = live // max(keys.shape[1], 1)
+    p = params.to(torch.int64)[rows]
+    sel, sub, col, v = row_contrib(
+        keys.reshape(-1)[live], vals.reshape(-1)[live], ts.reshape(-1)[live],
+        **_row_kw(p), log2_te=log2_te, signed=signed)
+    out.index_put_((rows[sel], sub[sel], col[sel]), v[sel], accumulate=True)
+    return out
+
+
+def fleet_update(keys, vals, ts, params, *, n_sub_max: int, width_max: int,
+                 log2_te: int, signed: bool = True, blk: int = 256,
+                 device=None) -> torch.Tensor:
+    """Counters of every fragment of one fleet epoch from the dense
+    rectangle (cs/cms: ``PARAM_LEVEL``/``PARAM_MIT`` are ignored, as the
+    reference compiles those terms out).
+
+    Args:
+      keys/vals/ts: ``(n_frags, p_max)`` rectangle, row ``f`` fragment
+        ``f``'s stream padded with value-0 packets (``FleetPacket
+        .densify``); uint32 words as numpy uint32 or int32 bit tensors.
+        ``p_max`` is padded here to a multiple of ``blk``.
+      params: ``(n_frags, N_PARAMS)`` int32 table (``core.fleet
+        .build_params``).
+      device: where numpy inputs go (default ``cuda``).
+
+    Returns ``(n_frags, n_sub_max, width_max)`` float32 counters, exact
+    zeros outside each fragment's live ``[:n_sub, :width]`` block.  CUDA
+    tensors launch kernel B3 (or raise); CPU tensors run
+    ``fleet_update_ref``.
+    """
+    dev = input_device(device, keys, vals, ts, params)
+    params_h = _host_i32(params)
+    _validate_params(params_h, n_sub_max=n_sub_max, width_max=width_max,
+                     log2_te=log2_te)
+    keys, vals, ts = (pad_to(x, blk) for x in
+                      packet_tensors(keys, vals, ts, dev, ndim=2))
+    if keys.shape[0] != params_h.shape[0]:
+        raise ValueError(f"{keys.shape[0]} packet rows for "
+                         f"{params_h.shape[0]} parameter rows")
+    params = _as_tensor(params, torch.int32, np.int32, dev)
+    _check_on(dev, params=params)
+    kw = dict(n_sub_max=n_sub_max, width_max=width_max, log2_te=log2_te,
+              signed=signed)
+    if dev.type == "cpu":
+        return fleet_update_ref(keys, vals, ts, params, **kw)
+    return _launch_dense(keys.contiguous(), vals.contiguous(),
+                         ts.contiguous(), params.contiguous(), **kw)
+
+
+def _launch_dense(keys, vals, ts, params, *, n_sub_max, width_max, log2_te,
+                  signed):
+    dev = keys.device
+    n_frags, p_max = keys.shape
+    out = torch.empty((n_frags, n_sub_max, width_max), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        lib = kernel_lib("fleet_dense", *_DENSE_ARGS)
+        w_blk = _width_blocking(n_sub_max, width_max,
+                                max_smem(lib, "fleet_dense", dev.index))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fleet_dense_launch(
+            keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
+            params.data_ptr(), out.data_ptr(), n_frags, p_max, n_sub_max,
+            width_max, w_blk, log2_te, int(signed), stream)
+    check_launch(err, "fleet_dense")
+    fleet_update.launches += 1
+    return out
+
+
+#: Kernel launches made by ``fleet_update`` (CUDA tensors only).
+fleet_update.launches = 0
+
+
+# --- loop of single-fragment kernels (kernel B2) ---------------------------
+
+
+def fleet_update_loop(keys, vals, ts, params, *, n_sub_max: int,
+                      width_max: int, log2_te: int, signed: bool = True,
+                      backend: str = "cuda", blk: int = 256,
+                      device=None) -> torch.Tensor:
+    """Per-row loop baseline (and oracle): one ``ops.sketch_update`` per
+    parameter row, each result written into the stacked layout on the
+    device.
+
+    ``keys``/``vals``/``ts`` are ``(n_packet_rows, p)`` rectangles;
+    ``params`` has ``n_levels = n_rows / n_packet_rows`` rows per packet
+    row, and row ``f * n_levels + l`` re-dispatches packet row ``f`` at its
+    own level / §4.4 parameters.  ``backend="cuda"`` launches kernel B2
+    per row on CUDA tensors (CPU tensors run its plain version);
+    ``backend="ref"`` runs the plain version wherever the tensors are.
+    Returns ``(n_rows, n_sub_max, width_max)`` float32 counters.
+    """
+    from .ops import sketch_update
+
+    dev = input_device(device, keys, vals, ts, params)
+    params_h = _host_i32(params)
+    _validate_params(params_h, n_sub_max=n_sub_max, width_max=width_max,
+                     log2_te=log2_te)
+    keys, vals, ts = packet_tensors(keys, vals, ts, dev, ndim=2)
+    n_rows = params_h.shape[0]
+    if keys.shape[0] == 0 or n_rows % keys.shape[0]:
+        raise ValueError(f"{n_rows} parameter rows are not a multiple of "
+                         f"{keys.shape[0]} packet rows")
+    n_levels = n_rows // keys.shape[0]
+    out = torch.zeros((n_rows, n_sub_max, width_max), dtype=torch.float32,
+                      device=dev)
+    for r in range(n_rows):
+        f = r // n_levels
+        p = params_h[r]
+        width, n_sub = int(p[PARAM_WIDTH]), int(p[PARAM_N_SUB])
+        out[r, :n_sub, :width] = sketch_update(
+            keys[f], vals[f], ts[f], width=width, n_sub=n_sub,
+            log2_te=log2_te, col_seed=int(p[PARAM_COL_SEED]),
+            sign_seed=int(p[PARAM_SIGN_SEED]),
+            sub_seed=int(p[PARAM_SUB_SEED]), level=int(p[PARAM_LEVEL]),
+            mitigation=bool(p[PARAM_MIT]), signed=signed, backend=backend,
+            blk=blk)
+    return out

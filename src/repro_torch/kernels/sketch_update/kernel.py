@@ -1,11 +1,17 @@
-"""Numerical contract and packed-timestamp layout shared by the update
-kernels (the constants of ``repro/kernels/sketch_update/kernel.py``).
+"""Numerical contract, packed-timestamp layout and launch helpers shared
+by the update kernels (the constants of
+``repro/kernels/sketch_update/kernel.py``).
 
 The TPU module's value modes, VMEM geometry selector and lane factoring
-have no counterpart here: the CUDA wrapper picks its own launch geometry
-(``fleet.py``).
+have no counterpart here: each CUDA wrapper picks its own launch geometry
+from the card's shared memory (``launch_w_blk``).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
 
 #: f32 accumulates integers exactly while |counter| stays below this, so
 #: the order of the kernel's atomic adds cannot change a bit.
@@ -31,3 +37,63 @@ def check_output_peak(peak: float) -> None:
         raise OverflowError(
             f"counter magnitude {peak:.3g} exceeds the f32 exact-integer "
             "range (2^24); shorten the epoch or split the stream")
+
+
+# --- what the CUDA wrappers share ------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_lib(name: str, *launch_argtypes) -> ctypes.CDLL:
+    """Library ``name`` (``kernels.build.SOURCES``), built on first use,
+    with ``<name>_launch`` declared to take ``launch_argtypes`` and return
+    the CUDA error code, and ``<name>_max_smem`` declared."""
+    from ..build import load
+
+    lib = load(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = list(launch_argtypes)
+    launch.restype = ctypes.c_int
+    query = getattr(lib, f"{name}_max_smem")
+    query.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    query.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_smem(lib: ctypes.CDLL, name: str, device_index: int) -> int:
+    """Opt-in shared memory per block of the current device, in bytes."""
+    del device_index  # the C query reads the current device; cache key only
+    n = ctypes.c_int(0)
+    err = getattr(lib, f"{name}_max_smem")(ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed with error {err}")
+    return n.value
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def launch_w_blk(n_sub_max: int, width_max: int, smem_bytes: int) -> int:
+    """Columns per CTA: the largest power of two whose ``n_sub_max x
+    w_blk`` f32 tile fits the shared-memory limit, capped at the width's
+    power-of-two ceiling."""
+    w = 1
+    cap = 1 << max(int(width_max) - 1, 0).bit_length()
+    while w * 2 <= cap and n_sub_max * w * 2 * 4 <= smem_bytes:
+        w *= 2
+    if n_sub_max * w * 4 > smem_bytes:
+        raise ValueError(f"n_sub_max={n_sub_max} does not fit one column "
+                         f"in {smem_bytes} B of shared memory")
+    return w
+
+
+def pad_to(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x`` padded with zeros along its last axis to a multiple of ``m``
+    (the value-0 padding contract: a padding packet adds nothing)."""
+    p = (-x.shape[-1]) % m
+    if p == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, p))

@@ -1,6 +1,6 @@
 """Epoch-driven replay engine (port of ``repro/net/simulator.py``'s
-``Replayer``): feeds per-switch packet streams to a system, one epoch
-window at a time.
+``Replayer``): feeds per-switch packet streams to a system, one epoch or
+one epoch window at a time.
 
 For every switch it precomputes the packets whose path traverses it, split
 by epoch (the split uses timestamps, so subepoch semantics are exact).
@@ -55,17 +55,34 @@ class Replayer:
                 )
 
     def run(self, system, window: int = 1) -> None:
-        """Replay every epoch through ``system.run_window``, ``window``
-        consecutive epochs per super-dispatch (``ns`` frozen per window;
-        the tail window may be shorter)."""
+        """Replay every epoch through ``system``.
+
+        ``window=1`` (the default) runs the paper's per-epoch control:
+        ``system.run_epoch`` epoch by epoch, fleet-backed systems getting
+        the cached packed epoch (``epoch_packet``).  ``window=E`` on a
+        fleet-backed system batches E consecutive epochs into one
+        super-dispatch (``system.run_window``; ``ns`` frozen per window,
+        the tail window may be shorter); systems without a fleet run
+        epoch by epoch whatever the window.
+        """
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        order = system.fleet.frag_order
-        for e0 in range(0, self.wl.n_epochs, window):
-            eps = range(e0, min(e0 + window, self.wl.n_epochs))
-            system.run_window(e0, [self._streams[e] for e in eps],
-                              packets=[self.epoch_packet(e, order)
-                                       for e in eps])
+        fleet = getattr(system, "fleet", None)
+        if window > 1 and fleet is not None:
+            order = fleet.frag_order
+            for e0 in range(0, self.wl.n_epochs, window):
+                eps = range(e0, min(e0 + window, self.wl.n_epochs))
+                system.run_window(e0, [self._streams[e] for e in eps],
+                                  packets=[self.epoch_packet(e, order)
+                                           for e in eps])
+            return
+        for ep in range(self.wl.n_epochs):
+            if fleet is not None:
+                system.run_epoch(ep, self._streams[ep],
+                                 packet=self.epoch_packet(
+                                     ep, fleet.frag_order))
+            else:
+                system.run_epoch(ep, self._streams[ep])
 
     def epoch_stream(self, epoch: int) -> Dict[int, SwitchStream]:
         return self._streams[epoch]

@@ -1,5 +1,6 @@
 """Synthetic traffic matching the paper's workload statistics (port of
-``repro/net/traffic.py``'s generator and memory distribution).
+``repro/net/traffic.py``: the Fat-Tree and §6.3 linear-path generators
+and the heterogeneity generators).
 
 The paper replays the CAIDA equinix-nyc backbone trace (~2M packets, ~200K
 flows over ~5 s), mapping IPs uniformly at random to hosts.  The
@@ -11,7 +12,7 @@ trace as the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 from scipy import stats
@@ -131,6 +132,35 @@ def gen_workload(topo: Topology, n_flows: int = 50_000,
                     n_epochs)
 
 
+def linear_path_workload(n_hops: int, eval_flows: int, eval_packets: int,
+                         bg_packets_per_hop: Sequence[int],
+                         alpha: float = 1.1, n_epochs: int = 32,
+                         log2_te: int = 16, burstiness: float = 0.3,
+                         seed: int = 0, arrival: str = "paced") -> Workload:
+    """§6.3 setup (Fig. 15): one n-hop path; evaluation flows traverse all
+    hops, per-hop background flows cross a single switch."""
+    rng = np.random.RandomState(seed)
+    all_sizes, all_paths = [], []
+    sizes_e = zipf_sizes(eval_flows, eval_packets, alpha, rng)
+    all_sizes.append(sizes_e)
+    all_paths += [tuple(range(n_hops))] * eval_flows
+    for hop, bg in enumerate(bg_packets_per_hop):
+        n_bg = max(int(eval_flows * bg / max(eval_packets, 1)), 16)
+        all_sizes.append(zipf_sizes(n_bg, int(bg), alpha, rng))
+        all_paths += [(hop,)] * n_bg
+    sizes = np.concatenate(all_sizes)
+    n_flows = len(sizes)
+    keys = unique_keys(n_flows, seed + 1)
+    path_mat = np.full((n_flows, 5), -1, dtype=np.int64)
+    for i, p in enumerate(all_paths):
+        path_mat[i, :len(p)] = p
+    duration = n_epochs << log2_te
+    pkt_flow, pkt_ts = _bursty_timestamps(sizes, duration, burstiness,
+                                          rng, n_epochs, arrival=arrival)
+    return Workload(keys, sizes, path_mat, pkt_flow, pkt_ts, log2_te,
+                    n_epochs)
+
+
 def gini_memories(n: int, base_bytes: int, gini: float,
                   rng: np.random.RandomState) -> np.ndarray:
     """Lognormal memory sizes with a given Gini index, mean = base (§6)."""
@@ -140,3 +170,31 @@ def gini_memories(n: int, base_bytes: int, gini: float,
     x = rng.lognormal(mean=0.0, sigma=sigma, size=n)
     x = x / x.mean() * base_bytes
     return np.maximum(x.astype(np.int64), 64)
+
+
+def cov_list(n: int, total: float, cov: float,
+             rng: np.random.RandomState) -> np.ndarray:
+    """Pseudo-random positive list with given coefficient of variation and
+    fixed sum (§6.3 heterogeneity sweeps)."""
+    if cov <= 0:
+        x = np.full(n, 1.0)
+    else:
+        sigma = np.sqrt(np.log1p(cov * cov))
+        x = rng.lognormal(mean=0.0, sigma=sigma, size=n)
+        # Rescale empirically toward the target CoV (small-n correction).
+        for _ in range(8):
+            cur = x.std() / x.mean()
+            if cur < 1e-9:
+                break
+            x = x.mean() + (x - x.mean()) * (cov / cur)
+            x = np.maximum(x, 1e-3 * x.mean())
+    return x / x.sum() * total
+
+
+def gini_index(x: np.ndarray) -> float:
+    x = np.sort(np.asarray(x, dtype=np.float64))
+    n = len(x)
+    if n == 0 or x.sum() == 0:
+        return 0.0
+    cum = np.cumsum(x)
+    return float((n + 1 - 2 * (cum / cum[-1]).sum()) / n)

@@ -1,5 +1,6 @@
-"""On-card tests of the port's CUDA kernels against their plain PyTorch
-versions.  They need an NVIDIA GPU and ``nvcc``; elsewhere they skip with
+"""On-card tests of the port's CUDA kernels (B1 ragged fleet update, B2
+single-fragment update, B3 dense fleet update) against their plain
+PyTorch versions.  They need an NVIDIA GPU and ``nvcc``; elsewhere they skip with
 the reason.  Run them on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.
 
@@ -20,7 +21,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
                     "interpret mode (their plain versions are tested on the "
-                    "CPU in test_torch_fleet_kernel.py)")
+                    "CPU in test_torch_{fleet,single,dense}_kernel.py)")
     return torch.device("cuda")
 
 
@@ -81,3 +82,71 @@ def test_kernel_equals_plain_version_on_card(cuda_device, name):
     ref = FK.fleet_update_ragged(*args, device="cpu", **kw)
     assert got.is_cuda and got.shape == ref.shape
     assert torch.equal(got.cpu(), ref)
+
+
+SINGLE_CASES = {
+    # width, n_sub, level, mitigation, signed, n_packets (not a blk multiple)
+    "cs-n1-wide": (123974, 1, 0, False, True, 300_001),
+    "cs-wrap-262144": (262144, 8, 0, False, True, 50_003),
+    "cms-n256": (3728, 256, 0, False, False, 40_000),
+    "um-level3": (7000, 4, 3, False, True, 20_011),
+    "cs-mit": (26102, 16, 0, True, True, 30_007),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SINGLE_CASES))
+def test_single_kernel_equals_plain_version_on_card(cuda_device, name):
+    from repro_torch.kernels.sketch_update import ops
+
+    width, n_sub, level, mit, signed, n = SINGLE_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    keys = (rng.zipf(1.3, n) % 50_000).astype(np.uint32) \
+        * np.uint32(2654435761)
+    ts = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    vals = rng.integers(1, 4, n).astype(np.float32)
+    kw = dict(width=width, n_sub=n_sub, log2_te=16, col_seed=11,
+              sign_seed=22, sub_seed=33, level=level, mitigation=mit,
+              signed=signed)
+    before = ops.sketch_update.launches
+    got = ops.sketch_update(keys, vals, ts, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert ops.sketch_update.launches == before + 1
+    plain = ops.sketch_update(keys, vals, ts, device=cuda_device,
+                              backend="ref", **kw)
+    assert ops.sketch_update.launches == before + 1
+    assert got.is_cuda and got.shape == (n_sub, width)
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), ops.sketch_update(keys, vals, ts,
+                                                    device="cpu", **kw))
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["cs", "cms"])
+def test_dense_kernel_equals_plain_version_on_card(cuda_device, signed):
+    rng = np.random.default_rng(5 + signed)
+    n_frags, p_max = 9, 4096
+    keys = rng.integers(0, 2 ** 32, (n_frags, p_max),
+                        dtype=np.uint64).astype(np.uint32)
+    ts = rng.integers(0, 2 ** 32, (n_frags, p_max),
+                      dtype=np.uint64).astype(np.uint32)
+    lens = rng.integers(0, p_max, n_frags)
+    vals = (np.arange(p_max)[None, :] < lens[:, None]) \
+        * rng.integers(1, 4, (n_frags, p_max)).astype(np.float32)
+    params = np.zeros((n_frags, FK.N_PARAMS), np.int32)
+    params[:, :3] = rng.integers(0, 2 ** 31, (n_frags, 3))
+    n_sub = rng.choice([1, 2, 16, 64], n_frags)
+    params[:, FK.PARAM_WIDTH] = rng.choice([300, 3728, 70001, 123974],
+                                           n_frags)
+    params[:, FK.PARAM_N_SUB] = n_sub
+    params[:, FK.PARAM_LOG2_N_SUB] = np.log2(n_sub).astype(np.int32)
+    kw = dict(n_sub_max=int(n_sub.max()),
+              width_max=int(params[:, FK.PARAM_WIDTH].max()), log2_te=16,
+              signed=signed)
+    before = FK.fleet_update.launches
+    got = FK.fleet_update(keys, vals, ts, params, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert FK.fleet_update.launches == before + 1
+    assert torch.equal(got.cpu(), FK.fleet_update(keys, vals, ts, params,
+                                                  device="cpu", **kw))
+    loop = FK.fleet_update_loop(keys, vals, ts, params, device=cuda_device,
+                                **kw)
+    assert torch.equal(loop, got)

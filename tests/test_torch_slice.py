@@ -271,18 +271,26 @@ def test_fleet_window_path_matches_reference(scenario, reference_engine,
 
 
 def test_unported_options_raise():
+    """What the port does not have yet raises instead of running another
+    path: device meshes, XOR parity groups, churn events and the UnivMon
+    all-levels queries."""
     mems = {0: 4096, 1: 8192}
-    with pytest.raises(NotImplementedError, match="loop"):
-        DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
-                       device="cpu")
+    for backend in ("fleet", "loop"):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
+                           backend=backend, mesh=object(), device="cpu")
     system = DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
-                            backend="fleet", device="cpu")
-    with pytest.raises(NotImplementedError, match="merge"):
-        system.query_flows(np.zeros(1, np.uint32), [(0,)], [0])
-    with pytest.raises(NotImplementedError):
+                            device="cpu")
+    empty = {}
+    with pytest.raises(NotImplementedError, match="churn"):
+        system.run_epoch(0, empty, events=[object()])
+    with pytest.raises(NotImplementedError, match="churn"):
+        system.run_window(0, [empty], events_by_epoch=[[object()]])
+    with pytest.raises(NotImplementedError, match="entropy"):
         system.query_entropy()
     frags = {0: TCfg(0, "cs", 4096)}
-    for kw in (dict(layout="dense"), dict(mesh=object()),
-               dict(parity_groups=[[0]])):
+    for kw in (dict(mesh=object()), dict(parity_groups=[[0]])):
         with pytest.raises(NotImplementedError):
             FleetEpochRunner(frags, LOG2_TE, device="cpu", **kw)
+    # nothing was dispatched by the refused calls
+    assert system.records == {} and system.n_log == []
