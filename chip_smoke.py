@@ -5,7 +5,9 @@
 
 It builds every CUDA kernel of the port from the sources in this checkout
 (B1 ragged fleet update, B2 single-fragment update, B3 dense fleet
-update), holds each against its plain PyTorch version on the card, then
+update), holds each against its plain PyTorch version on the card (B1 and
+B3 also on timed stress cases: a heavy hitter beside uniform keys, a
+10^6-packet row, an n = 256 group, fractional values), then
 drives two paths through the user entry points at the paper's §6.1
 full-scale setting, for cs and cms:
 
@@ -82,6 +84,26 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: its launches (a kernel's zero fill
+    and kernel) captured once in a CUDA graph and the graph replayed
+    between CUDA events, so the host's launch path (Python, ctypes, the
+    allocator) is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _time_ms(graph.replay, reps=reps)
+    del graph
+    return ms
 
 
 def _packet_bytes(n_slots: int, n_live: int) -> int:
@@ -179,10 +201,79 @@ def _to_device(args, dev):
             torch.from_numpy(block_frag).to(dev))
 
 
+def _stress_rows(rng):
+    """The stress cases of B1 and B3, as ``{name: (per-row key arrays,
+    widths, n_sub)}``.  A heavy hitter (one key on half of a 2^20-packet
+    row: its counter is an exact integer near 10^6, below 2^24) and a
+    row of uniform keys of the same size, timed side by side for the
+    atomics' same-address contention; a single row of ~10^6 Zipf(1.1)
+    keys as in the trace (the old one-CTA-per-row grid's worst case); and
+    a window-shaped n = 256 group (16 narrow rows of ~15 000 packets); and
+    a row of 2^16 packets on 16 keys with fractional values
+    (``_stress_values``), whose adds to one counter are not integers."""
+    n = 1 << 20
+
+    def uniform(m):
+        return rng.integers(0, 2 ** 32, m, dtype=np.uint64).astype(np.uint32)
+
+    heavy = uniform(n)
+    heavy[rng.random(n) < 0.5] = np.uint32(0x9E3779B9)
+    zipf = ((rng.zipf(1.1, 1_000_003) % N_FLOWS).astype(np.uint32)
+            * np.uint32(2654435761))
+    return {
+        "heavy hitter": ([heavy], [123974], 1),
+        "uniform keys": ([uniform(n)], [123974], 1),
+        "long row 1e6": ([zipf], [123974], 1),
+        "n=256 group": ([uniform(int(m)) for m in
+                         rng.integers(10_000, 20_000, 16)],
+                        [3728, 7748] * 8, 256),
+        "fractional values": ([uniform(16)[rng.integers(0, 16, 1 << 16)]],
+                              [3728], 1),
+    }
+
+
+def _stress_values(rng, name, m):
+    """A stress row's packet values: 1 to 3, or for the fractional case
+    multiples of 1/4 up to 7/4 (dyadic, so every sum is exact in f32 in any
+    order and the kernels must still equal their plain versions)."""
+    if name == "fractional values":
+        return rng.integers(1, 8, m) / 4
+    return rng.integers(1, 4, m)
+
+
+def _stress_params(rng, widths, n_sub):
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    params = np.zeros((len(widths), FK.N_PARAMS), np.int32)
+    params[:, :3] = rng.integers(0, 2 ** 31, (len(widths), 3))
+    params[:, FK.PARAM_WIDTH] = widths
+    params[:, FK.PARAM_N_SUB] = n_sub
+    params[:, FK.PARAM_LOG2_N_SUB] = int(n_sub).bit_length() - 1
+    return params
+
+
+def _stress_timing(name, kernel, plain, targs, kw, times):
+    """Hold a stress case to its plain version (``torch.equal``) and time
+    the kernel's device work on it (``_graph_ms``)."""
+    import torch
+
+    got, want = kernel(*targs, **kw), plain(*targs, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kernel.__name__} differs from its plain "
+                             f"version on case {name!r}")
+    times[name] = _graph_ms(lambda: kernel(*targs, **kw))
+    peak = float(want.abs().max())
+    del got, want
+    return err, peak
+
+
 def kernel_phase(dev) -> float:
     """The update kernel against its plain version on the card: skewed and
     empty rows, widths up to 262144, n_sub 1..64, UnivMon with 16 levels,
-    §4.4 mitigation.  Returns the largest absolute difference (0 when
+    §4.4 mitigation, and the stress cases of ``_stress_rows``, which are
+    also timed.  Returns the largest absolute difference (0 when
     equal)."""
     import torch
 
@@ -221,6 +312,34 @@ def kernel_phase(dev) -> float:
         if not ok:
             raise AssertionError(f"fleet_ragged differs from its plain "
                                  f"version on case {name!r}")
+    times = {}
+    for name, (row_keys, widths, n_sub) in _stress_rows(rng).items():
+        blk = 256
+        nblk = [-(-len(k) // blk) for k in row_keys]
+        keys = np.zeros(sum(nblk) * blk, np.uint32)
+        vals = np.zeros(len(keys), np.float32)
+        offs = np.concatenate([[0], np.cumsum(nblk)]) * blk
+        for r, k in enumerate(row_keys):
+            keys[offs[r]:offs[r] + len(k)] = k
+            vals[offs[r]:offs[r] + len(k)] = _stress_values(rng, name,
+                                                            len(k))
+        ts = rng.integers(0, 2 ** 32, len(keys), dtype=np.uint64
+                          ).astype(np.uint32)
+        block_frag = np.repeat(np.arange(len(row_keys), dtype=np.int32),
+                               nblk)
+        params = _stress_params(rng, widths, n_sub)
+        kw = dict(n_sub_max=n_sub, width_max=max(widths), log2_te=LOG2_TE,
+                  signed=True, blk=blk, n_levels=1, with_mitigation=False)
+        err, peak = _stress_timing(
+            name, FK._launch, FK.fleet_update_ragged_ref,
+            _to_device((keys, vals, ts, params, block_frag), dev), kw, times)
+        worst = max(worst, err)
+        _log(f"kernel  fleet_ragged  {name:28s} rows={len(row_keys):4d} "
+             f"packets={int((vals != 0).sum()):8d} largest |counter| "
+             f"{peak} equal=True max_abs_err={err} kernel "
+             f"{times[name]:.4f} ms")
+    _log(f"kernel  fleet_ragged  heavy hitter / uniform keys: "
+         f"{times['heavy hitter'] / times['uniform keys']:.3f}")
     return worst
 
 
@@ -270,7 +389,8 @@ def kernel_phase_single(dev) -> float:
 
 def kernel_phase_dense(dev) -> float:
     """B3 against its plain version on the card: random rectangles with
-    heterogeneous widths (one above 65536) and n_sub, empty rows."""
+    heterogeneous widths (one above 65536) and n_sub, empty rows, and the
+    stress cases of ``_stress_rows``, which are also timed."""
     import torch
 
     from repro_torch.kernels.sketch_update import fleet as FK
@@ -312,16 +432,41 @@ def kernel_phase_dense(dev) -> float:
         if not ok:
             raise AssertionError("fleet_dense differs from its plain version")
         del got, plain
+    times = {}
+    for name, (row_keys, widths, n_sub) in _stress_rows(rng).items():
+        p_max = -(-max(len(k) for k in row_keys) // 256) * 256
+        keys = np.zeros((len(row_keys), p_max), np.uint32)
+        vals = np.zeros(keys.shape, np.float32)
+        for r, k in enumerate(row_keys):
+            keys[r, :len(k)] = k
+            vals[r, :len(k)] = _stress_values(rng, name, len(k))
+        ts = rng.integers(0, 2 ** 32, keys.shape, dtype=np.uint64
+                          ).astype(np.uint32)
+        params = _stress_params(rng, widths, n_sub)
+        kw = dict(n_sub_max=n_sub, width_max=max(widths), log2_te=LOG2_TE,
+                  signed=True)
+        err, peak = _stress_timing(
+            name, FK._launch_dense, FK.fleet_update_ref,
+            _to_device((keys, vals, ts, params, np.zeros(0, np.int32)),
+                       dev)[:4], kw, times)
+        worst = max(worst, err)
+        _log(f"kernel  fleet_dense   {name:28s} {len(row_keys)}x{p_max} "
+             f"packets={int((vals != 0).sum()):8d} largest |counter| "
+             f"{peak} equal=True max_abs_err={err} kernel "
+             f"{times[name]:.4f} ms")
+    _log(f"kernel  fleet_dense   heavy hitter / uniform keys: "
+         f"{times['heavy hitter'] / times['uniform keys']:.3f}")
     return worst
 
 
-def _window_groups(fleet, rep, e0):
-    """The grouped launches of window ``e0`` exactly as the fleet runner
-    makes them: ``[(args, kw)]`` per distinct n_sub."""
+def _window_groups(fleet, rep, e0, n_epochs=WINDOW):
+    """The grouped launches of the ``n_epochs`` epochs from ``e0`` (a
+    window, or one epoch of the per-epoch path) exactly as the fleet
+    runner makes them: ``[(args, kw)]`` per distinct n_sub."""
     from repro_torch.core.fleet import fold_packet_flags, pack_csr
     from repro_torch.kernels.sketch_update import fleet as FK
 
-    es = [e for e in range(e0, e0 + WINDOW) if e in fleet._params_log]
+    es = [e for e in range(e0, e0 + n_epochs) if e in fleet._params_log]
     params = np.concatenate([fleet._params_log[e] for e in es])
     packets = [fold_packet_flags(rep.epoch_packet(e, fleet.frag_order),
                                  fleet.log2_te, n_levels=fleet.n_levels,
@@ -494,7 +639,8 @@ def main_path(dev, sc):
              f"{err_rmse:.4f}; device == host oracle in every window; "
              f"window stacks never copied to the host")
         if kind == "cs":
-            result["timing"] = kernel_timing(system, rep, dev)
+            result["timing"] = kernel_timing(
+                _window_groups(system.fleet, rep, WINDOW), dev)
         del system, fleet, bufs, buf
     profile_replay(mems, rep)
     return result
@@ -651,7 +797,8 @@ def epoch_path(dev, sc):
                 .cpu().numpy().astype(np.int64)), "record != B2 loop"
         res.setdefault("timing", {})[kind] = dict(
             epoch=e_star, trect=trect, kw=kw, params=params,
-            live=int((rect[1] != 0).sum()))
+            live=int((rect[1] != 0).sum()),
+            ragged=_window_groups(fleet, rep, e_star, n_epochs=1))
         _log(f"epoch   {kind} B2 loop on epoch {e_star} (n_sub_max "
              f"{kw['n_sub_max']}, {len(params)} rows, rectangle "
              f"{rect[0].shape}): launches {counts_l}; == its plain version, "
@@ -706,9 +853,11 @@ def epoch_kernel_timing(res, dev):
     keys, vals, ts, params = t["trect"]
     kw = t["kw"]
     n_frags, p_max = keys.shape
-    out = {}
+    out = {"fleet_ragged": kernel_timing(t["ragged"], dev)}
     # B3: one launch over the rectangle
     ms = _time_ms(lambda: FK._launch_dense(keys, vals, ts, params, **kw))
+    device_ms = _graph_ms(lambda: FK._launch_dense(keys, vals, ts, params,
+                                                   **kw))
     plain_ms = _time_ms(lambda: FK.fleet_update_ref(keys, vals, ts, params,
                                                     **kw), reps=3, warmup=1)
     out_bytes = n_frags * kw["n_sub_max"] * kw["width_max"] * 4
@@ -716,7 +865,8 @@ def epoch_kernel_timing(res, dev):
     bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     ops_s = OPS_PER_PAIR * t["live"] / OPS_PER_S
     out["fleet_dense"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(bytes_s, ops_s),
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(bytes_s, ops_s),
         bound_by="bytes" if bytes_s >= ops_s else "operations")
     # B2: one launch per parameter row, as the loop makes them
     p = t["params"]
@@ -768,10 +918,10 @@ def epoch_kernel_timing(res, dev):
         ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(bytes_s, ops_s),
         bound_by="bytes" if bytes_s >= ops_s else "operations")
     for name, v in out.items():
-        _log(f"timing  {name} cs epoch {t['epoch']} ({n_frags}x{p_max} "
-             f"rectangle, n_sub_max {kw['n_sub_max']}): kernel "
-             f"{v['ms']:.3f} ms, plain version {v['plain_ms']:.3f} ms, "
-             f"bound {v['bound_ms']:.3f} ms ({v['bound_by']})")
+        shape = (f"{v['groups']} grouped launches" if name == "fleet_ragged"
+                 else f"{n_frags}x{p_max} rectangle, n_sub_max "
+                      f"{kw['n_sub_max']}")
+        _timing_line(f"{name} cs epoch {t['epoch']} ({shape})", v)
     return out
 
 
@@ -813,6 +963,12 @@ def profile_replay(mems, rep, window=WINDOW):
          f"{wall_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms "
          f"({100 * device_ms / (wall_s * 1e3):.2f}% of wall), torch ops on "
          f"the host {torch_cpu_ms:.1f} ms, the rest numpy/Python")
+    update = [e for e in on_dev if "fleet_ragged_kernel" in e.key
+              or "fleet_dense_kernel" in e.key]
+    update_ms = sum(e.self_device_time_total for e in update) / 1e3
+    _log(f"profile   update kernels {update_ms:.3f} ms on the device in "
+         f"{sum(e.count for e in update)} launches "
+         f"({100 * update_ms / (wall_s * 1e3):.3f}% of wall)")
     for e in top_dev:
         _log(f"profile   device {e.self_device_time_total / 1e3:9.3f} ms "
              f"x{e.count:<5d} {e.key[:90]}")
@@ -821,19 +977,27 @@ def profile_replay(mems, rep, window=WINDOW):
              f"x{e.count:<5d} {e.key[:90]}")
 
 
-def kernel_timing(system, rep, dev):
-    """Times of one window's grouped launches at the main path's shapes:
-    the kernel (its launch path, inputs already validated and on the
-    card), its plain version, and the bound for the same work."""
-    import torch
-
+def kernel_timing(groups, dev):
+    """Times of B1's grouped launches (a window's or an epoch's) at the main
+    path's shapes, inputs already validated and on the card: ``ms``, CUDA
+    events over back-to-back calls of each launch path (its zero fill,
+    ctypes call and kernel, host included), summed over the launches;
+    ``device_ms``, the device time of all their zero fills and kernels
+    (``_graph_ms``); the plain version's time; the bound for the same work;
+    and how hard the heaviest counters contend (``_heaviest_counters``)."""
     from repro_torch.kernels.sketch_update import fleet as FK
 
-    groups = _window_groups(system.fleet, rep, WINDOW)
-    ms = plain_ms = bound_bytes_s = bound_ops_s = 0.0
-    for args, kw in groups:
-        targs = _to_device(args, dev)
-        ms += _time_ms(lambda: FK._launch(*targs, **kw))
+    launches = [(_to_device(args, dev), kw) for args, kw in groups]
+
+    def run():
+        for targs, kw in launches:
+            FK._launch(*targs, **kw)
+
+    ms = sum(_time_ms(lambda: FK._launch(*targs, **kw))
+             for targs, kw in launches)
+    device_ms = _graph_ms(run)
+    plain_ms = bound_bytes_s = bound_ops_s = 0.0
+    for (args, kw), (targs, _) in zip(groups, launches):
         plain_ms += _time_ms(lambda: FK.fleet_update_ragged_ref(*targs, **kw),
                              reps=3, warmup=1)
         keys, vals, _, params, bf = args
@@ -844,9 +1008,49 @@ def kernel_timing(system, rep, dev):
         pairs = live * kw["n_levels"]
         bound_ops_s += OPS_PER_PAIR * pairs / OPS_PER_S
     bound_by = "bytes" if bound_bytes_s >= bound_ops_s else "operations"
-    return dict(ms=ms, plain_ms=plain_ms,
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                 bound_ms=1e3 * max(bound_bytes_s, bound_ops_s),
-                bound_by=bound_by, groups=len(groups))
+                bound_by=bound_by, groups=len(groups),
+                contention=_heaviest_counters(launches))
+
+
+def _heaviest_counters(launches):
+    """How many of the trace's adds land on one counter, the same-address
+    atomics that serialise in L2: every row's monitored packets counted per
+    counter (the plain version with every live value 1, unsigned).  Returns
+    the most hits on one counter and the heaviest counter's share of its
+    row's monitored packets (largest and median over the rows that have
+    any)."""
+    import torch
+
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    most, shares = 0, []
+    for (keys, vals, ts, params, bf), kw in launches:
+        hits = FK.fleet_update_ragged_ref(
+            keys, (vals != 0).float(), ts, params, bf,
+            **dict(kw, signed=False)).flatten(1)
+        top, total = hits.max(dim=1).values, hits.sum(dim=1)
+        some = total > 0
+        most = max(most, int(top.max()))
+        shares += (top[some] / total[some]).tolist()
+        del hits
+    torch.cuda.synchronize()
+    return dict(most_hits=most, share_max=max(shares),
+                share_median=float(np.median(shares)))
+
+
+def _timing_line(what, v):
+    """One kernel's timing line of the log."""
+    c = v.get("contention")
+    hot = (f"; heaviest counter {c['most_hits']} hits, "
+           f"{100 * c['share_max']:.2f}% of its row's monitored packets "
+           f"(median over rows {100 * c['share_median']:.2f}%)" if c else "")
+    device = (f", device {v['device_ms']:.4f} ms (zero fill + kernel, CUDA "
+              f"graph)" if v.get("device_ms") is not None else "")
+    _log(f"timing  {what}: eager {v['ms']:.4f} ms (CUDA events, host "
+         f"included){device}, plain version {v['plain_ms']:.3f} ms, bound "
+         f"{v['bound_ms']:.4f} ms ({v['bound_by']}){hot}")
 
 
 def main() -> int:
@@ -886,10 +1090,8 @@ def main() -> int:
         sc = build_scenario()
         res = main_path(dev, sc)
         timing = res["timing"]
-        _log(f"timing  fleet_ragged one cs window ({timing['groups']} "
-             f"launches): kernel {timing['ms']:.3f} ms, plain version "
-             f"{timing['plain_ms']:.3f} ms, bound {timing['bound_ms']:.3f} ms "
-             f"({timing['bound_by']})")
+        _timing_line(f"fleet_ragged one cs window ({timing['groups']} "
+                     f"launches)", timing)
         ep = epoch_path(dev, sc)
         ep_timing = epoch_kernel_timing(ep, dev)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
@@ -907,7 +1109,8 @@ def main() -> int:
         line = {"kernels": [{
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": ref + replaces, "launches": launches,
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": err, "ms": t["ms"],
+            "device_ms": t.get("device_ms"), "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
         } for name, replaces, launches, err, t in entries]}

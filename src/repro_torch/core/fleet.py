@@ -246,8 +246,8 @@ def dispatch_ragged_grouped(params: np.ndarray,
     """Ragged CSR dispatch with fragments grouped by subepoch count: one
     ``fleet_update_ragged`` launch per distinct ``n_sub``, each sized to
     its group's ``(n_sub, width)`` ceiling, so no row pays another row's
-    subepoch count in shared memory or output.  Counters are
-    bit-identical to one ungrouped launch.
+    subepoch count in output.  Counters are bit-identical to one
+    ungrouped launch.
 
     ``params`` rows are (epoch, fragment[, level]), epoch-major, with
     ``n_sub``/``width`` frozen across the window.  Returns the window's

@@ -101,11 +101,88 @@ __device__ __forceinline__ bool locate(const Row& r, uint32_t key,
   return true;
 }
 
+constexpr unsigned kWarp = 0xFFFFFFFFu;
+constexpr uint32_t kNoCell = 0xFFFFFFFFu;
+constexpr float kExact = 16777216.0f;  // 2^24
+
+// Four packets of one row (one 16-byte load each of keys, timestamps and
+// values) into the row's (n_sub_max, width_max) counter slab, which is
+// locate's block [0, width_max): value-0 padding and unmonitored packets
+// add nothing.  Adds that hit one counter are summed before the atomic,
+// since same-address atomics serialise in L2:
+//   1. within the thread: its four packets, often consecutive packets of
+//      one bursty flow;
+//   2. within the warp, among the lanes whose counter a neighbouring lane
+//      also holds (a heavy hitter's): __match_any_sync groups them by
+//      address (its cost grows with the distinct values it sees, so the
+//      other lanes all present 0), __reduce_add_sync sums each group, and
+//      the group's lowest lane adds the sum.  A warp where no lane shares a
+//      counter with a neighbour skips the match.
+// The neighbour test only picks which lanes to group; the grouping itself
+// is by address, so it cannot merge two counters.  Only integer adds below
+// 2^24 join a group (the main path's values are packet counts, and the
+// caller bounds cs and um input mass and every cms counter below 2^24), so
+// a group's int sum is exact and grouping changes no bit; any other add (a
+// fraction, or one past the contract, which must still reach the caller's
+// peak check) takes its own atomic, as the plain version adds it.  Every
+// lane of the warp
+// must call it (uniform control flow).  The atomics' returns are unused,
+// so they compile to reductions (RED) that resolve in L2.
+__device__ __forceinline__ void add_quad(const Row& r, const uint4& k,
+                                         const uint4& t, const float4& v,
+                                         float* slab, uint32_t width_max) {
+  const uint32_t keys[4] = {k.x, k.y, k.z, k.w};
+  const uint32_t ts[4] = {t.x, t.y, t.z, t.w};
+  const float vals[4] = {v.x, v.y, v.z, v.w};
+  uint32_t cell[4] = {0u, 0u, 0u, 0u};
+  float add[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  bool ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    ok[i] = vals[i] != 0.0f &&
+            locate(r, keys[i], ts[i], vals[i], 0u, width_max, &cell[i],
+                   &add[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = i + 1; j < 4; ++j)
+      if (ok[i] && ok[j] && cell[i] == cell[j]) {
+        add[i] += add[j];
+        ok[j] = false;
+      }
+  const unsigned lane = threadIdx.x & 31u;
+  uint32_t mine[4], theirs[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mine[i] = ok[i] ? cell[i] : kNoCell;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    theirs[i] = __shfl_sync(kWarp, mine[i], (lane + 31u) & 31u);
+    theirs[4 + i] = __shfl_sync(kWarp, mine[i], (lane + 1u) & 31u);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bool shared = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) shared |= mine[i] == theirs[j];
+    shared &= ok[i] && fabsf(add[i]) < kExact && add[i] == rintf(add[i]);
+    float* addr = slab + cell[i];
+    if (__any_sync(kWarp, shared)) {
+      const unsigned peers = __match_any_sync(
+          kWarp, shared ? reinterpret_cast<unsigned long long>(addr) : 0ull);
+      const int sum =
+          __reduce_add_sync(peers, shared ? __float2int_rn(add[i]) : 0);
+      if (shared && lane == static_cast<unsigned>(__ffs(peers) - 1))
+        atomicAdd(addr, static_cast<float>(sum));
+    }
+    if (ok[i] && !shared) atomicAdd(addr, add[i]);
+  }
+}
+
 }  // namespace sketch
 
 // The largest dynamic shared memory a block of the current device may opt
-// in to, in bytes (232448 on an H100); each library exports it under its
-// own name.
+// in to, in bytes (232448 on an H100); sketch_update.cu exports it to size
+// its tile.
 inline int sketch_max_smem(int* bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -19,16 +19,22 @@ replaces the TPU's Pallas kernel) and raises if the launch fails; on CPU
 tensors it runs the plain PyTorch version of the same arithmetic
 (``*_ref``, built on ``ref.row_contrib``) that the tests and
 ``chip_smoke.py`` hold the kernel to.
+
+B1 and B3 are one packet-parallel pass: the grid spans the packet stream
+(``ragged_geometry``: CTAs of ``blocks_per_cta`` stream blocks) or the
+rectangle (``dense_geometry``: CTAs of ``CTA_SLOTS``-slot chunks of a
+row), each packet is read once per launch, and every monitored packet is
+added into a zeroed output with one global atomic add.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from .kernel import (check_launch, kernel_lib, launch_w_blk, max_smem,
-                     pad_to)
+from .kernel import check_launch, kernel_lib, pad_to
 from .ref import row_contrib
 
 # Columns of the per-row int32 parameter table.
@@ -42,7 +48,12 @@ PARAM_LEVEL = 6   # UnivMon virtual level row id (0 for cs/cms)
 PARAM_MIT = 7     # §4.4 single-hop mitigation enabled for this row
 N_PARAMS = 8
 
-_MAX_GRID_Y = 65535
+#: Threads of a B1 / B3 CTA, and the packet slots each takes at a time:
+#: one 16-byte load each of keys, values and timestamps.
+CTA_THREADS = 256
+SLOTS_PER_THREAD = 4
+CTA_SLOTS = CTA_THREADS * SLOTS_PER_THREAD
+_MAX_GRID_X = 2 ** 31 - 1
 
 
 def _as_int32_bits(x, device) -> torch.Tensor:
@@ -194,8 +205,45 @@ def _row_kw(p: torch.Tensor) -> dict:
 
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_RAGGED_ARGS = [_VP] * 6 + [_CI] * 10 + [_VP]
-_DENSE_ARGS = [_VP] * 5 + [_CI, _CLL] + [_CI] * 5 + [_VP]
+_RAGGED_ARGS = [_VP] * 6 + [_CLL] + [_CI] * 10 + [_VP]
+_DENSE_ARGS = [_VP] * 5 + [_CLL] + [_CI] * 6 + [_VP]
+
+
+def _grid(n_ctas: int) -> int:
+    if n_ctas > _MAX_GRID_X:
+        raise ValueError(f"{n_ctas} CTAs exceed CUDA's grid limit of "
+                         f"{_MAX_GRID_X}")
+    return n_ctas
+
+
+def ragged_geometry(n_blocks: int, blk: int) -> Tuple[int, int]:
+    """Kernel B1's launch: ``(blocks_per_cta, grid)``.  CTA ``c`` walks
+    stream blocks ``[c * blocks_per_cta, min((c + 1) * blocks_per_cta,
+    n_blocks))``: as many whole blocks as fit ``CTA_SLOTS`` slots (one
+    load per thread), and at least one."""
+    if blk < 1 or blk % SLOTS_PER_THREAD:
+        raise ValueError(f"blk={blk} is not a positive multiple of "
+                         f"{SLOTS_PER_THREAD} (one 16-byte load)")
+    blocks_per_cta = max(1, CTA_SLOTS // blk)
+    return blocks_per_cta, _grid(-(-n_blocks // blocks_per_cta))
+
+
+def dense_geometry(n_frags: int, p_max: int) -> Tuple[int, int]:
+    """Kernel B3's launch: ``(chunks_per_row, grid)``.  CTA ``c`` walks
+    slots ``[j * CTA_SLOTS, min((j + 1) * CTA_SLOTS, p_max))`` of row
+    ``c // chunks_per_row``, with ``j = c % chunks_per_row``."""
+    if p_max % SLOTS_PER_THREAD:
+        raise ValueError(f"p_max={p_max} is not a multiple of "
+                         f"{SLOTS_PER_THREAD} (one 16-byte load)")
+    chunks_per_row = -(-p_max // CTA_SLOTS)
+    return chunks_per_row, _grid(n_frags * chunks_per_row)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and at a 16-byte aligned address, as the kernels'
+    vector loads need (a fresh allocation is; a view may not be)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def fleet_update_ragged(keys, vals, ts, params, block_frag, *,
@@ -237,7 +285,7 @@ def fleet_update_ragged(keys, vals, ts, params, block_frag, *,
     if dev.type == "cpu":
         return fleet_update_ragged_ref(keys, vals, ts, params, block_frag,
                                        **kw)
-    return _launch(keys.contiguous(), vals.contiguous(), ts.contiguous(),
+    return _launch(_aligned(keys), _aligned(vals), _aligned(ts),
                    params.contiguous(), block_frag.contiguous(), **kw)
 
 
@@ -245,26 +293,21 @@ def _launch(keys, vals, ts, params, block_frag, *, n_sub_max, width_max,
             log2_te, signed, blk, n_levels, with_mitigation):
     dev = keys.device
     n_rows = params.shape[0]
-    out = torch.empty((n_rows, n_sub_max, width_max), dtype=torch.float32,
+    out = torch.zeros((n_rows, n_sub_max, width_max), dtype=torch.float32,
                       device=dev)
-    if out.numel() == 0:
+    n_blocks = block_frag.shape[0]
+    blocks_per_cta, grid = ragged_geometry(n_blocks, blk)
+    if grid == 0:   # no stream, hence (validated) no rows
         return out
-    n_prow = n_rows // n_levels
-    # Each packet row's first block, derived on the device from the
-    # non-decreasing map (validated on the host above).
-    row_start = torch.searchsorted(
-        block_frag, torch.arange(n_prow + 1, dtype=torch.int32, device=dev)
-    ).to(torch.int32)
     with torch.cuda.device(dev):
         lib = kernel_lib("fleet_ragged", *_RAGGED_ARGS)
-        w_blk = _width_blocking(n_sub_max, width_max,
-                                max_smem(lib, "fleet_ragged", dev.index))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fleet_ragged_launch(
             keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
-            params.data_ptr(), row_start.data_ptr(), out.data_ptr(),
-            n_rows, n_levels, n_sub_max, width_max, w_blk, blk, log2_te,
-            int(signed), int(n_levels > 1), int(with_mitigation), stream)
+            params.data_ptr(), block_frag.data_ptr(), out.data_ptr(),
+            n_blocks, blocks_per_cta, grid, blk, n_levels, n_sub_max,
+            width_max, log2_te, int(signed), int(n_levels > 1),
+            int(with_mitigation), stream)
     check_launch(err, "fleet_ragged")
     fleet_update_ragged.launches += 1
     return out
@@ -272,15 +315,6 @@ def _launch(keys, vals, ts, params, block_frag, *, n_sub_max, width_max,
 
 #: Kernel launches made by ``fleet_update_ragged`` (CUDA tensors only).
 fleet_update_ragged.launches = 0
-
-
-def _width_blocking(n_sub_max: int, width_max: int, smem: int) -> int:
-    """``launch_w_blk`` for a grid whose y axis walks the width blocks."""
-    w_blk = launch_w_blk(n_sub_max, width_max, smem)
-    if -(-width_max // w_blk) > _MAX_GRID_Y:
-        raise ValueError(f"width_max={width_max} needs more than "
-                         f"{_MAX_GRID_Y} width blocks of {w_blk}")
-    return w_blk
 
 
 # --- dense rectangle (kernel B3) -------------------------------------------
@@ -342,27 +376,26 @@ def fleet_update(keys, vals, ts, params, *, n_sub_max: int, width_max: int,
               signed=signed)
     if dev.type == "cpu":
         return fleet_update_ref(keys, vals, ts, params, **kw)
-    return _launch_dense(keys.contiguous(), vals.contiguous(),
-                         ts.contiguous(), params.contiguous(), **kw)
+    return _launch_dense(_aligned(keys), _aligned(vals), _aligned(ts),
+                         params.contiguous(), **kw)
 
 
 def _launch_dense(keys, vals, ts, params, *, n_sub_max, width_max, log2_te,
                   signed):
     dev = keys.device
     n_frags, p_max = keys.shape
-    out = torch.empty((n_frags, n_sub_max, width_max), dtype=torch.float32,
+    out = torch.zeros((n_frags, n_sub_max, width_max), dtype=torch.float32,
                       device=dev)
-    if out.numel() == 0:
+    chunks_per_row, grid = dense_geometry(n_frags, p_max)
+    if grid == 0:   # no fragments or no packet slots
         return out
     with torch.cuda.device(dev):
         lib = kernel_lib("fleet_dense", *_DENSE_ARGS)
-        w_blk = _width_blocking(n_sub_max, width_max,
-                                max_smem(lib, "fleet_dense", dev.index))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fleet_dense_launch(
             keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
-            params.data_ptr(), out.data_ptr(), n_frags, p_max, n_sub_max,
-            width_max, w_blk, log2_te, int(signed), stream)
+            params.data_ptr(), out.data_ptr(), p_max, chunks_per_row, grid,
+            n_sub_max, width_max, log2_te, int(signed), stream)
     check_launch(err, "fleet_dense")
     fleet_update.launches += 1
     return out

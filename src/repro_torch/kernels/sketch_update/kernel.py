@@ -3,8 +3,10 @@ by the update kernels (the constants of
 ``repro/kernels/sketch_update/kernel.py``).
 
 The TPU module's value modes, VMEM geometry selector and lane factoring
-have no counterpart here: each CUDA wrapper picks its own launch geometry
-from the card's shared memory (``launch_w_blk``).
+have no counterpart here.  Each CUDA wrapper picks its own launch
+geometry: B2 sizes its shared-memory tile by the card's limit
+(``launch_w_blk``, ``max_smem``); B1 and B3 keep no tile and cut the
+packet stream instead (``fleet.ragged_geometry``, ``fleet.dense_geometry``).
 """
 from __future__ import annotations
 
@@ -46,25 +48,26 @@ def check_output_peak(peak: float) -> None:
 def kernel_lib(name: str, *launch_argtypes) -> ctypes.CDLL:
     """Library ``name`` (``kernels.build.SOURCES``), built on first use,
     with ``<name>_launch`` declared to take ``launch_argtypes`` and return
-    the CUDA error code, and ``<name>_max_smem`` declared."""
+    the CUDA error code."""
     from ..build import load
 
     lib = load(name)
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = list(launch_argtypes)
     launch.restype = ctypes.c_int
-    query = getattr(lib, f"{name}_max_smem")
-    query.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    query.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def max_smem(lib: ctypes.CDLL, name: str, device_index: int) -> int:
-    """Opt-in shared memory per block of the current device, in bytes."""
+    """Opt-in shared memory per block of the current device, in bytes, from
+    the library's ``<name>_max_smem`` export."""
     del device_index  # the C query reads the current device; cache key only
+    query = getattr(lib, f"{name}_max_smem")
+    query.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    query.restype = ctypes.c_int
     n = ctypes.c_int(0)
-    err = getattr(lib, f"{name}_max_smem")(ctypes.byref(n))
+    err = query(ctypes.byref(n))
     if err:
         raise RuntimeError(f"cudaDeviceGetAttribute failed with error {err}")
     return n.value

@@ -150,3 +150,81 @@ def test_dense_kernel_equals_plain_version_on_card(cuda_device, signed):
     loop = FK.fleet_update_loop(keys, vals, ts, params, device=cuda_device,
                                 **kw)
     assert torch.equal(loop, got)
+
+
+def _stress_keys(case, rng):
+    """A heavy hitter (one key on half of a 2^20-packet row) or a single
+    row of ~10^6 Zipf(1.1) keys, the shapes B1 and B3 were redesigned
+    for."""
+    if case == "heavy-hitter":
+        n = 1 << 20
+        keys = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+        keys[rng.random(n) < 0.5] = np.uint32(0x9E3779B9)
+        return keys
+    return ((rng.zipf(1.1, 1_000_003) % 200_000).astype(np.uint32)
+            * np.uint32(2654435761))
+
+
+@pytest.mark.parametrize("case", ["heavy-hitter", "long-row"])
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_fleet_kernels_on_stress_rows_on_card(cuda_device, layout, case):
+    """One row that one key dominates (its counter an exact integer near
+    10^6) or that holds ~10^6 packets: B1 and B3 equal their plain
+    versions bit for bit, whatever order the atomics land in."""
+    rng = np.random.default_rng(sum(map(ord, layout + case)))
+    keys = _stress_keys(case, rng)
+    n, blk = len(keys), 256
+    p = -(-n // blk) * blk
+    keys = np.pad(keys, (0, p - n))
+    vals = np.pad(rng.integers(1, 4, n).astype(np.float32), (0, p - n))
+    ts = rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(np.uint32)
+    params = np.zeros((1, FK.N_PARAMS), np.int32)
+    params[0, :3] = rng.integers(0, 2 ** 31, 3)
+    params[0, FK.PARAM_WIDTH] = 123974
+    params[0, FK.PARAM_N_SUB] = 2
+    params[0, FK.PARAM_LOG2_N_SUB] = 1
+    kw = dict(n_sub_max=2, width_max=123974, log2_te=16, signed=True)
+    if layout == "ragged":
+        fn = FK.fleet_update_ragged
+        args = (keys, vals, ts, params, np.zeros(p // blk, np.int32))
+        kw["blk"] = blk
+    else:
+        fn = FK.fleet_update
+        args = (keys[None], vals[None], ts[None], params)
+    before = fn.launches
+    got = fn(*args, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = fn(*args, device="cpu", **kw)
+    assert float(want.abs().max()) > (1e5 if case == "heavy-hitter" else 1e4)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_fleet_kernels_on_fractional_values_on_card(cuda_device, layout):
+    """Fractional values (multiples of 1/4, so every sum is exact in f32
+    in any order) on counters that many lanes share: 2^16 packets on 16
+    keys.  B1 and B3 equal their plain versions bit for bit, as for the
+    integer packet counts of the main path."""
+    rng = np.random.default_rng(1 if layout == "ragged" else 2)
+    n = 1 << 16
+    pool = rng.integers(0, 2 ** 32, 16, dtype=np.uint64).astype(np.uint32)
+    keys = pool[rng.integers(0, 16, n)]
+    vals = (rng.integers(1, 8, n) / 4).astype(np.float32)
+    ts = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    params = np.zeros((1, FK.N_PARAMS), np.int32)
+    params[0, :3] = rng.integers(0, 2 ** 31, 3)
+    params[0, FK.PARAM_WIDTH] = 3728
+    params[0, FK.PARAM_N_SUB] = 1
+    kw = dict(n_sub_max=1, width_max=3728, log2_te=16, signed=True)
+    if layout == "ragged":
+        fn = FK.fleet_update_ragged
+        args = (keys, vals, ts, params, np.zeros(n // 256, np.int32))
+        kw["blk"] = 256
+    else:
+        fn = FK.fleet_update
+        args = (keys[None], vals[None], ts[None], params)
+    got = fn(*args, device=cuda_device, **kw)
+    want = fn(*args, device="cpu", **kw)
+    assert (want != torch.round(want)).any()     # fractional counters
+    assert torch.equal(got.cpu(), want)

@@ -127,6 +127,58 @@ def test_loop_baseline_covers_level_and_mitigation_rows(name):
     assert torch.equal(ragged, got)
 
 
+@pytest.mark.parametrize("n_frags,p_max", [
+    (0, 256), (1, 0), (1, 4), (1, 256), (1, 1024), (3, 1028), (20, 32768),
+    (2, 1_000_192)])
+def test_dense_geometry_covers_every_chunk_once(n_frags, p_max):
+    """Kernel B3's CTAs cover every slot of every row exactly once, in
+    chunks of at most CTA_SLOTS (one 16-byte load per thread)."""
+    per_row, grid = TK.dense_geometry(n_frags, p_max)
+    assert 0 <= grid <= 2 ** 31 - 1 and grid == n_frags * per_row
+    seen = np.zeros((n_frags, p_max), np.int64)
+    for c in range(grid):
+        f, j = divmod(c, per_row)
+        lo, hi = j * TK.CTA_SLOTS, min((j + 1) * TK.CTA_SLOTS, p_max)
+        assert lo < hi                          # no idle CTA
+        seen[f, lo:hi] += 1
+    assert (seen == 1).all()
+
+
+def test_dense_geometry_refusals():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TK.dense_geometry(2, 1026)
+    with pytest.raises(ValueError, match="grid limit"):
+        TK.dense_geometry(2 ** 21, 2 ** 20 * TK.CTA_SLOTS)
+
+
+@pytest.mark.parametrize("name", ["cs", "cms"])
+def test_dense_chunk_shares_sum_to_reference_oracle(name):
+    """The plain version over each CTA's chunk of the rectangle, as
+    ``dense_geometry`` cuts it, sums to the reference's counters."""
+    kind, ns = DENSE_CASES[name]
+    c = _epoch(kind, ns, seed=2)
+    keys, vals, ts = c["tp"].densify(256)
+    kw = dict(n_sub_max=c["n_sub_max"], width_max=c["width_max"],
+              log2_te=LOG2_TE, signed=c["signed"])
+    per_row, grid = TK.dense_geometry(*keys.shape)
+    assert per_row > 1
+    rows = [torch.from_numpy(x.view(np.int32).copy()) if x.dtype == np.uint32
+            else torch.from_numpy(x) for x in (keys, vals, ts)]
+    total = torch.zeros(len(c["params"]), c["n_sub_max"], c["width_max"])
+    for cta in range(grid):
+        f, j = divmod(cta, per_row)
+        part = [torch.zeros_like(x) for x in rows]
+        cut = slice(j * TK.CTA_SLOTS, (j + 1) * TK.CTA_SLOTS)
+        for p, x in zip(part, rows):
+            p[f, cut] = x[f, cut]
+        total += TK.fleet_update_ref(*part, torch.from_numpy(c["params"]),
+                                     **kw)
+    want = RK.fleet_update_loop(keys, vals, ts, c["params"], backend="ref",
+                                **kw)
+    assert np.abs(want).sum() > 0
+    np.testing.assert_array_equal(total.numpy(), want)
+
+
 def test_dense_argument_checks():
     c = _epoch("cs", {0: 1, 1: 2, 2: 8, 3: 2, 4: 4})
     keys, vals, ts = c["tp"].densify(256)

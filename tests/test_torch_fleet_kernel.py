@@ -25,6 +25,7 @@ from repro_torch.core import fleet as TF
 from repro_torch.core.fragment import FragmentConfig as TCfg
 from repro_torch.kernels.sketch_query import engine as TE
 from repro_torch.kernels.sketch_update import fleet as TK
+from repro_torch.kernels.sketch_update import kernel as TKK
 
 LOG2_TE = 12
 BLK = 256
@@ -165,8 +166,75 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     (64, 20_000, 232_448, 512), (1024, 3728, 232_448, 32),
     (2, 300, 232_448, 512), (8, 1, 232_448, 1)])
 def test_launch_geometry(n_sub, width, smem, want):
-    w = TK.launch_w_blk(n_sub, width, smem)
+    w = TKK.launch_w_blk(n_sub, width, smem)
     assert w == want and n_sub * w * 4 <= smem
+
+
+def _ragged_shares(n_blocks, blk):
+    """Each CTA's stream blocks, cut as kernel B1 cuts them from
+    ``ragged_geometry``."""
+    per_cta, grid = TK.ragged_geometry(n_blocks, blk)
+    return [range(c * per_cta, min((c + 1) * per_cta, n_blocks))
+            for c in range(grid)]
+
+
+@pytest.mark.parametrize("n_blocks,blk", [
+    (0, 256), (1, 256), (3, 256), (4, 256), (5, 256), (1150, 256),
+    (4096, 256), (3, 2048), (100, 12), (9, 4)])
+def test_ragged_geometry_covers_every_block_once(n_blocks, blk):
+    per_cta, grid = TK.ragged_geometry(n_blocks, blk)
+    shares = _ragged_shares(n_blocks, blk)
+    assert [b for share in shares for b in share] == list(range(n_blocks))
+    assert all(len(share) for share in shares)     # no idle CTA
+    assert 0 <= grid <= 2 ** 31 - 1 and grid == (n_blocks > 0) * len(shares)
+    # one 16-byte load per thread: a CTA walks as many whole blocks as
+    # fit CTA_SLOTS slots, and at least one
+    assert per_cta == max(1, TK.CTA_SLOTS // blk)
+    if n_blocks == 1:
+        assert grid == 1
+
+
+def test_ragged_geometry_refusals():
+    for blk in (0, 6, 258):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            TK.ragged_geometry(8, blk)
+    with pytest.raises(ValueError, match="grid limit"):
+        TK.ragged_geometry(2 ** 31, 2048)       # one block per CTA
+    assert TK.ragged_geometry(2 ** 31, 256) == (4, 2 ** 29)
+
+
+@pytest.mark.parametrize("name", ["cs", "cms", "um4", "cs-mit"])
+def test_cta_shares_sum_to_reference_oracle(name):
+    """The plain version over each CTA's share of the stream, as
+    ``ragged_geometry`` cuts it, sums to the reference's counters: every
+    packet is counted once, and a share that crosses a row boundary reads
+    each block's row from ``block_frag``."""
+    kind, n_levels, mit, ns = KERNEL_CASES[name]
+    c = _case(kind, n_levels, mit, ns, seed=4)
+    keys, vals, ts, bf = TF.pack_csr([c["tp"], c["tp"]], BLK)
+    params = np.concatenate([c["params"], c["params"]])
+    kw = dict(n_sub_max=c["n_sub_max"], width_max=c["width_max"],
+              log2_te=LOG2_TE, signed=c["signed"])
+    shares = _ragged_shares(len(bf), BLK)
+    assert len(shares) > 3 and any(
+        bf[s.start] != bf[s.stop - 1] for s in shares)
+    total = torch.zeros(len(params), c["n_sub_max"], c["width_max"])
+    for s in shares:
+        lo, hi = s.start * BLK, s.stop * BLK
+        total += TK.fleet_update_ragged_ref(
+            *(torch.from_numpy(x[lo:hi].view(np.int32).copy())
+              if x.dtype == np.uint32 else torch.from_numpy(x[lo:hi])
+              for x in (keys, vals, ts)),
+            torch.from_numpy(params), torch.from_numpy(bf[s.start:s.stop]),
+            blk=BLK, n_levels=c["L"], with_mitigation=mit, **kw)
+    dk, dv, dt = c["rp"].densify(BLK)
+    want = RK.fleet_update_loop(dk, dv, dt, c["rparams"], backend="ref",
+                                **kw)
+    assert np.abs(want).sum() > 0
+    for e in range(2):
+        np.testing.assert_array_equal(
+            total[e * len(c["params"]):(e + 1) * len(c["params"])].numpy(),
+            want)
 
 
 @pytest.mark.parametrize("kind", ["cs", "cms", "um"])
