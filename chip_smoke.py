@@ -5,9 +5,10 @@
 
 It builds every CUDA kernel of the port from the sources in this checkout
 (B1 ragged fleet update, B2 single-fragment update, B3 dense fleet
-update), holds each against its plain PyTorch version on the card (B1 and
-B3 also on timed stress cases: a heavy hitter beside uniform keys, a
-10^6-packet row, an n = 256 group, fractional values), then
+update), holds each against its plain PyTorch version on the card, also
+on timed stress cases (a heavy hitter beside uniform keys, a 10^6-packet
+row, fractional values; an n = 256 group for B1 and B3; a UnivMon level
+row and a §4.4 row of 2^20 packets for B2), then
 drives two paths through the user entry points at the paper's §6.1
 full-scale setting, for cs and cms:
 
@@ -202,13 +203,13 @@ def _to_device(args, dev):
 
 
 def _stress_rows(rng):
-    """The stress cases of B1 and B3, as ``{name: (per-row key arrays,
-    widths, n_sub)}``.  A heavy hitter (one key on half of a 2^20-packet
-    row: its counter is an exact integer near 10^6, below 2^24) and a
-    row of uniform keys of the same size, timed side by side for the
-    atomics' same-address contention; a single row of ~10^6 Zipf(1.1)
-    keys as in the trace (the old one-CTA-per-row grid's worst case); and
-    a window-shaped n = 256 group (16 narrow rows of ~15 000 packets); and
+    """The stress cases of B1 and B3 (B2 takes the single-row ones), as
+    ``{name: (per-row key arrays, widths, n_sub)}``.  A heavy hitter (one
+    key on half of a 2^20-packet row: its counter is an exact integer near
+    10^6, below 2^24) and a row of uniform keys of the same size, timed
+    side by side for the atomics' same-address contention; a single row
+    of ~10^6 Zipf(1.1) keys as in the trace (the old one-CTA-per-row
+    grid's worst case); a window-shaped n = 256 group (16 narrow rows of ~15 000 packets); and
     a row of 2^16 packets on 16 keys with fractional values
     (``_stress_values``), whose adds to one counter are not integers."""
     n = 1 << 20
@@ -343,13 +344,46 @@ def kernel_phase(dev) -> float:
     return worst
 
 
+def _b2_stress_rows(rng, dev):
+    """B2's stress rows on the card, ``{name: ((keys, vals, ts), ops._launch
+    keywords)}``: the single-row cases of ``_stress_rows``, a UnivMon
+    level-3 row and a §4.4 row of 2^20 uniform keys; each padded with
+    value-0 packets to a multiple of 256, random full 32-bit ts words."""
+    rows = {name: (row_keys[0], widths[0], 1, 0, False)
+            for name, (row_keys, widths, _) in _stress_rows(rng).items()
+            if len(row_keys) == 1}
+    n = 1 << 20
+    uniform = rng.integers(0, 2 ** 32, (2, n), dtype=np.uint64
+                           ).astype(np.uint32)
+    rows["um level 3 row"] = (uniform[0], 7748, 4, 3, False)
+    rows["§4.4 row"] = (uniform[1], 26102, 16, 0, True)
+    out = {}
+    for name, (keys, width, n_sub, level, mit) in rows.items():
+        p = -(-len(keys) // 256) * 256
+        vals = np.zeros(p, np.float32)
+        vals[:len(keys)] = _stress_values(rng, name, len(keys))
+        ts = rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(np.uint32)
+        targs = _to_device((np.pad(keys, (0, p - len(keys))), vals, ts,
+                            np.zeros(0, np.int32), np.zeros(0, np.int32)),
+                           dev)[:3]
+        out[name] = targs, dict(width=width, n_sub=n_sub, log2_te=LOG2_TE,
+                                col_seed=int(rng.integers(2 ** 31)),
+                                sign_seed=int(rng.integers(2 ** 31)),
+                                sub_seed=int(rng.integers(2 ** 31)),
+                                signed=True, level=level, mitigation=mit)
+    return out
+
+
 def kernel_phase_single(dev) -> float:
     """B2 against its plain version on the card: widths up to 262144
     (above the 65536 hash wrap), n_sub 1..256, cs and cms, a UnivMon level
-    row and a §4.4 row, packet counts that are not blk multiples."""
+    row and a §4.4 row, packet counts that are not blk multiples; then
+    the single-row stress cases of ``_stress_rows`` and a level row and a
+    §4.4 row of 2^20 packets, each also timed."""
     import torch
 
     from repro_torch.kernels.sketch_update import ops
+    from repro_torch.kernels.sketch_update.ref import sketch_update_ref
 
     rng = np.random.default_rng(11)
     cases = [  # width, n_sub, level, mitigation, signed, packets
@@ -384,6 +418,18 @@ def kernel_phase_single(dev) -> float:
         if not ok:
             raise AssertionError(f"sketch_update differs from its plain "
                                  f"version at width={width} n_sub={n_sub}")
+    times = {}
+    for name, (targs, kw) in _b2_stress_rows(rng, dev).items():
+        err, peak = _stress_timing(name, ops._launch, sketch_update_ref,
+                                   targs, kw, times)
+        worst = max(worst, err)
+        _log(f"kernel  sketch_update {name:28s} width={kw['width']:6d} "
+             f"n_sub={kw['n_sub']:3d} packets="
+             f"{int((targs[1] != 0).sum()):8d} "
+             f"largest |counter| {peak} equal=True max_abs_err={err} "
+             f"kernel {times[name]:.4f} ms")
+    _log(f"kernel  sketch_update heavy hitter / uniform keys: "
+         f"{times['heavy hitter'] / times['uniform keys']:.3f}")
     return worst
 
 
@@ -683,6 +729,26 @@ def _replay(rep, system):
     return read_counts(), time.perf_counter() - h0, start.elapsed_time(end)
 
 
+def _sampled_epoch(system, rep, dev):
+    """The epoch of a per-epoch replay of ``system`` that ran the most
+    subepochs (the earliest on a tie), as the B2 loop and B3 take it:
+    ``(epoch, packet, dense rectangle, parameter table, kernel keywords,
+    rectangle and table on the card)``."""
+    from repro_torch.core.fleet import build_params
+
+    fleet = system.fleet
+    e = max(range(N_EPOCHS),
+            key=lambda e: (max(_epoch_ns(system, e).values()), -e))
+    ns = _epoch_ns(system, e)
+    params = build_params(fleet.fragments, e, ns, fleet.frag_order)
+    packet = rep.epoch_packet(e, fleet.frag_order)
+    rect = packet.densify(fleet.blk)
+    kw = dict(n_sub_max=max(ns.values()), width_max=int(fleet.widths.max()),
+              log2_te=LOG2_TE, signed=fleet.kind == "cs")
+    trect = _to_device(rect + (params, np.zeros(0, np.int32)), dev)[:4]
+    return e, packet, rect, params, kw, trect
+
+
 def epoch_path(dev, sc):
     """The per-epoch path at the §6.1 setting, cs then cms: calibration,
     the ragged (B1) and dense (B3) replays, the B2 loop on the epoch with
@@ -692,7 +758,7 @@ def epoch_path(dev, sc):
 
     from repro_torch.core.disketch import (DiscoSystem, DiSketchSystem,
                                            calibrate_rho_target)
-    from repro_torch.core.fleet import build_params, dispatch_ragged_grouped
+    from repro_torch.core.fleet import dispatch_ragged_grouped
     from repro_torch.kernels.sketch_update import fleet as FK
     from repro_torch.net.simulator import rmse
 
@@ -754,17 +820,9 @@ def epoch_path(dev, sc):
              f"and n trajectory == ragged in all {N_EPOCHS} epochs")
 
         # B2 loop on the epoch with the most subepochs
-        e_star = max(epochs, key=lambda e: (max(_epoch_ns(system, e)
-                                                .values()), -e))
-        ns = _epoch_ns(system, e_star)
+        e_star, packet, rect, params, kw, trect = _sampled_epoch(
+            system, rep, dev)
         fleet = system.fleet
-        params = build_params(fleet.fragments, e_star, ns, fleet.frag_order)
-        packet = rep.epoch_packet(e_star, fleet.frag_order)
-        rect = packet.densify(fleet.blk)
-        kw = dict(n_sub_max=max(ns.values()),
-                  width_max=int(fleet.widths.max()), log2_te=LOG2_TE,
-                  signed=kind == "cs")
-        trect = _to_device(rect + (params, np.zeros(0, np.int32)), dev)[:4]
         reset_counts()
         loop = FK.fleet_update_loop(*trect, device=dev, **kw)  # <- B2 path
         torch.cuda.synchronize()
@@ -836,17 +894,39 @@ def epoch_path(dev, sc):
     return res
 
 
+def _b2_rows(params, signed):
+    """``ops._launch`` keywords of the B2 loop's launches, one per row of
+    an epoch's parameter table."""
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    return [dict(width=int(p[FK.PARAM_WIDTH]), n_sub=int(p[FK.PARAM_N_SUB]),
+                 log2_te=LOG2_TE, col_seed=int(p[FK.PARAM_COL_SEED]),
+                 sign_seed=int(p[FK.PARAM_SIGN_SEED]),
+                 sub_seed=int(p[FK.PARAM_SUB_SEED]), signed=signed,
+                 level=0, mitigation=False) for p in params]
+
+
+def _b2_loop(t, launch):
+    """The B2 loop on a sampled epoch (``t``, an ``epoch_path`` timing
+    entry): one ``launch`` (``ops._launch`` or the plain version) per
+    parameter row."""
+    keys, vals, ts, _ = t["trect"]
+    rows = _b2_rows(t["params"], t["kw"]["signed"])
+
+    def run():
+        for r, a in enumerate(rows):
+            launch(keys[r], vals[r], ts[r], **a)
+    return run
+
+
 def epoch_kernel_timing(res, dev):
     """Times of B2 (the loop, one launch per row) and B3 at the shapes of
     the sampled cs epoch, with their plain versions and bounds.  B2's loop
-    is timed at the wrapper's grid and at this port's first one (chunks of
-    at least 4 096 packets), each with its kernels' own device time from
-    torch.profiler beside the loop's."""
-    import torch
-
+    is timed eagerly (``ms``), under torch.profiler (its kernels' own
+    device time) and from a CUDA graph (``device_ms``; also on the sampled
+    cms epoch)."""
     from repro_torch.kernels.sketch_update import fleet as FK
     from repro_torch.kernels.sketch_update import ops
-    from repro_torch.kernels.sketch_update.kernel import kernel_lib, max_smem
     from repro_torch.kernels.sketch_update.ref import sketch_update_ref
 
     t = res["timing"]["cs"]
@@ -869,53 +949,34 @@ def epoch_kernel_timing(res, dev):
         bound_ms=1e3 * max(bytes_s, ops_s),
         bound_by="bytes" if bytes_s >= ops_s else "operations")
     # B2: one launch per parameter row, as the loop makes them
-    p = t["params"]
-    rows = []
-    for r in range(len(p)):
-        rows.append(dict(width=int(p[r, FK.PARAM_WIDTH]),
-                         n_sub=int(p[r, FK.PARAM_N_SUB]), log2_te=LOG2_TE,
-                         col_seed=int(p[r, FK.PARAM_COL_SEED]),
-                         sign_seed=int(p[r, FK.PARAM_SIGN_SEED]),
-                         sub_seed=int(p[r, FK.PARAM_SUB_SEED]),
-                         signed=kw["signed"], level=0, mitigation=False))
-
-    def loop_kernel():
-        for r, a in enumerate(rows):
-            ops._launch(keys[r], vals[r], ts[r], **a)
-
-    def loop_plain():
-        for r, a in enumerate(rows):
-            sketch_update_ref(keys[r], vals[r], ts[r], **a)
-
-    smem = max_smem(kernel_lib("sketch_update", *ops._ARGS),
-                    "sketch_update", keys.device.index)
-    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    shipped = ops.MIN_CHUNK
-    for min_chunk in (shipped, 4096):
-        ops.MIN_CHUNK = min_chunk
-        try:
-            ctas = [-(-a["width"] // w_blk) * n_chunks for a in rows
-                    for w_blk, n_chunks, _ in [ops.launch_geometry(
-                        p_max, a["width"], a["n_sub"], smem, sms)]]
-            loop_ms = _time_ms(loop_kernel, reps=5, warmup=1)
-            wall_ms, kern_ms, n_k = _profiled(loop_kernel,
-                                              "sketch_update_kernel")
-        finally:
-            ops.MIN_CHUNK = shipped
-        if min_chunk == shipped:
-            ms = loop_ms
-        _log(f"timing  sketch_update loop, MIN_CHUNK {min_chunk}: "
-             f"{len(rows)} launches of {min(ctas)}..{max(ctas)} CTAs "
-             f"({sum(ctas)} in all, {sms} SMs); loop {loop_ms:.3f} ms (CUDA "
-             f"events); under torch.profiler the loop's wall {wall_ms:.3f} "
-             f"ms, its {n_k} kernels {kern_ms:.3f} ms on the device "
-             f"({1e3 * kern_ms / max(n_k, 1):.2f} us each)")
+    rows = _b2_rows(t["params"], kw["signed"])
+    grid = ops.single_geometry(p_max)
+    loop_kernel = _b2_loop(t, ops._launch)
+    ms = _time_ms(loop_kernel, reps=5, warmup=1)
+    wall_ms, kern_ms, n_k = _profiled(loop_kernel, "sketch_update_kernel")
+    _log(f"timing  sketch_update loop: {len(rows)} launches of {grid} CTAs "
+         f"({len(rows) * grid} in all); loop {ms:.3f} ms (CUDA events); "
+         f"under torch.profiler the loop's wall {wall_ms:.3f} ms, its {n_k} "
+         f"kernels {kern_ms:.3f} ms on the device "
+         f"({1e3 * kern_ms / max(n_k, 1):.2f} us each)")
+    for kind in ("cs", "cms"):
+        graph = [_graph_ms(_b2_loop(res["timing"][kind], ops._launch))
+                 for _ in range(2)]
+        _log(f"timing  sketch_update {kind} epoch "
+             f"{res['timing'][kind]['epoch']} loop of "
+             f"{len(res['timing'][kind]['params'])} launches, device (zero "
+             f"fills + kernels, CUDA graph, two timings): {graph[0]:.4f}, "
+             f"{graph[1]:.4f} ms")
+        if kind == "cs":
+            device_ms = graph[0]
+    loop_plain = _b2_loop(t, sketch_update_ref)
     plain_ms = _time_ms(loop_plain, reps=2, warmup=1)
     live_rows = (vals != 0).sum(dim=1).tolist()
     bytes_s = sum(_packet_bytes(p_max, n) + a["n_sub"] * a["width"] * 4
                   for a, n in zip(rows, live_rows)) / HBM_BYTES_PER_S
     out["sketch_update"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(bytes_s, ops_s),
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(bytes_s, ops_s),
         bound_by="bytes" if bytes_s >= ops_s else "operations")
     for name, v in out.items():
         shape = (f"{v['groups']} grouped launches" if name == "fleet_ragged"

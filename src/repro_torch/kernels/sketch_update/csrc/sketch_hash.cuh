@@ -75,18 +75,16 @@ __device__ __forceinline__ Row row_from_params(const int32_t* p, int log2_te,
   return r;
 }
 
-// Where one packet lands in the row's column block [c0, c0 + w_blk): false
-// when it is not monitored or its column lies outside the block; otherwise
-// the tile cell `sub * w_blk + (col - c0)` and the signed value to add.
+// Where one packet lands in a row of `stride` columns (the output's row
+// stride, at least the row's width): false when it is not monitored;
+// otherwise the cell `sub * stride + col` and the signed value to add.
 __device__ __forceinline__ bool locate(const Row& r, uint32_t key,
-                                       uint32_t t, float v, uint32_t c0,
-                                       uint32_t w_blk, uint32_t* cell,
-                                       float* add) {
+                                       uint32_t t, float v, uint32_t stride,
+                                       uint32_t* cell, float* add) {
   if (r.with_levels &&
       static_cast<int>((t >> kLvlShift) & kLvlMask) < r.level)
     return false;
   const uint32_t col = hash_mod(key, r.col_seed, r.width);
-  if (col < c0 || col - c0 >= w_blk) return false;
   const uint32_t sub_pkt = (t >> r.shift) & r.n_mask;
   const uint32_t sub_flow = hash_u32(key, r.sub_seed) & r.n_mask;
   bool monitored = sub_pkt == sub_flow;
@@ -96,7 +94,7 @@ __device__ __forceinline__ bool locate(const Row& r, uint32_t key,
   }
   if (!monitored) return false;
   if (r.is_signed && (hash_u32(key, r.sign_seed) & 1u)) v = -v;
-  *cell = sub_pkt * w_blk + (col - c0);
+  *cell = sub_pkt * stride + col;
   *add = v;
   return true;
 }
@@ -106,8 +104,8 @@ constexpr uint32_t kNoCell = 0xFFFFFFFFu;
 constexpr float kExact = 16777216.0f;  // 2^24
 
 // Four packets of one row (one 16-byte load each of keys, timestamps and
-// values) into the row's (n_sub_max, width_max) counter slab, which is
-// locate's block [0, width_max): value-0 padding and unmonitored packets
+// values) into the row's (n_sub_max, width_max) counter slab (locate's
+// stride is width_max): value-0 padding and unmonitored packets
 // add nothing.  Adds that hit one counter are summed before the atomic,
 // since same-address atomics serialise in L2:
 //   1. within the thread: its four packets, often consecutive packets of
@@ -140,7 +138,7 @@ __device__ __forceinline__ void add_quad(const Row& r, const uint4& k,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     ok[i] = vals[i] != 0.0f &&
-            locate(r, keys[i], ts[i], vals[i], 0u, width_max, &cell[i],
+            locate(r, keys[i], ts[i], vals[i], width_max, &cell[i],
                    &add[i]);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -179,14 +177,3 @@ __device__ __forceinline__ void add_quad(const Row& r, const uint4& k,
 }
 
 }  // namespace sketch
-
-// The largest dynamic shared memory a block of the current device may opt
-// in to, in bytes (232448 on an H100); sketch_update.cu exports it to size
-// its tile.
-inline int sketch_max_smem(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaDeviceGetAttribute(
-      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-}

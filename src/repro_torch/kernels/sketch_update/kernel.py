@@ -3,10 +3,10 @@ by the update kernels (the constants of
 ``repro/kernels/sketch_update/kernel.py``).
 
 The TPU module's value modes, VMEM geometry selector and lane factoring
-have no counterpart here.  Each CUDA wrapper picks its own launch
-geometry: B2 sizes its shared-memory tile by the card's limit
-(``launch_w_blk``, ``max_smem``); B1 and B3 keep no tile and cut the
-packet stream instead (``fleet.ragged_geometry``, ``fleet.dense_geometry``).
+have no counterpart here.  Every CUDA kernel is one packet-parallel pass
+without a shared-memory tile, and each wrapper cuts the packet stream
+itself (``fleet.ragged_geometry``, ``fleet.dense_geometry``,
+``ops.single_geometry``).
 """
 from __future__ import annotations
 
@@ -58,39 +58,10 @@ def kernel_lib(name: str, *launch_argtypes) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def max_smem(lib: ctypes.CDLL, name: str, device_index: int) -> int:
-    """Opt-in shared memory per block of the current device, in bytes, from
-    the library's ``<name>_max_smem`` export."""
-    del device_index  # the C query reads the current device; cache key only
-    query = getattr(lib, f"{name}_max_smem")
-    query.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    query.restype = ctypes.c_int
-    n = ctypes.c_int(0)
-    err = query(ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed with error {err}")
-    return n.value
-
-
 def check_launch(err: int, name: str) -> None:
     """Raise if a launch function returned a CUDA error."""
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def launch_w_blk(n_sub_max: int, width_max: int, smem_bytes: int) -> int:
-    """Columns per CTA: the largest power of two whose ``n_sub_max x
-    w_blk`` f32 tile fits the shared-memory limit, capped at the width's
-    power-of-two ceiling."""
-    w = 1
-    cap = 1 << max(int(width_max) - 1, 0).bit_length()
-    while w * 2 <= cap and n_sub_max * w * 2 * 4 <= smem_bytes:
-        w *= 2
-    if n_sub_max * w * 4 > smem_bytes:
-        raise ValueError(f"n_sub_max={n_sub_max} does not fit one column "
-                         f"in {smem_bytes} B of shared memory")
-    return w
 
 
 def pad_to(x: torch.Tensor, m: int) -> torch.Tensor:

@@ -10,31 +10,34 @@ kernel) and raises if the launch fails; on CPU tensors, or with
 ``backend="ref"``, it runs ``ref.sketch_update_ref``, the plain PyTorch
 version the tests and ``chip_smoke.py`` hold the kernel to.
 
-Padding contract: packets are padded to a ``blk`` multiple with
-``value = 0`` entries, which contribute nothing.  Numerical contract:
-counters are f32 sums of integers, exact while ``|counter| < 2^24``,
-which the wrapper enforces (``check_overflow``), as the reference does.
+Padding contract: packets are padded to a multiple of ``blk`` and of 4
+(the kernel's 16-byte load) with ``value = 0`` entries, which contribute
+nothing.  Numerical contract: counters are f32 sums of integers, exact
+while ``|counter| < 2^24``, which the wrapper enforces
+(``check_overflow``), as the reference does.
 The TPU module's ``value_mode``, ``w_blk`` and ``interpret`` knobs have no
-counterpart: the wrapper picks its own launch geometry from the card.
+counterpart: kernel B2 is one packet-parallel pass over the stream
+(``single_geometry``), as the fleet kernels B1 and B3 are.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-
 import torch
 
-from .fleet import input_device, packet_tensors
-from .kernel import (check_launch, check_output_peak, kernel_lib,
-                     launch_w_blk, max_smem, pad_to)
+from .fleet import (SLOTS_PER_THREAD, _aligned, _grid, input_device,
+                    packet_tensors)
+from .kernel import check_launch, check_output_peak, kernel_lib, pad_to
 from .ref import sketch_update_ref
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = [_VP] * 4 + [_CLL, _CLL] + [_CI] * 12 + [_VP]
-#: Fewest packet slots per CTA: one per thread of the kernel's 512-thread
-#: block.  Below it threads idle while the CTA still zeroes and merges a
-#: whole tile.
-MIN_CHUNK = 512
+_ARGS = [_VP] * 4 + [_CLL] + [_CI] * 11 + [_VP]
+#: Threads of a B2 CTA (``kThreads`` in ``csrc/sketch_update.cu``); each
+#: takes 4 packet slots (one 16-byte load each of keys, values and
+#: timestamps), so a CTA takes 256 slots and a 32 768-slot fragment of the
+#: §6.1 epoch spreads over 128 CTAs (~1% faster there than 256-thread CTAs
+#: on the H100; PERF.md).
+CTA_THREADS = 64
 
 
 def _guard_peak(out: torch.Tensor, check_overflow: bool) -> torch.Tensor:
@@ -78,7 +81,7 @@ def sketch_update(keys, vals, ts, *, width: int, n_sub: int, log2_te: int,
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     dev = input_device(device, keys, vals, ts)
-    keys, vals, ts = (pad_to(x, blk) for x in
+    keys, vals, ts = (pad_to(x, math.lcm(blk, SLOTS_PER_THREAD)) for x in
                       packet_tensors(keys, vals, ts, dev, ndim=1))
     kw = dict(width=width, n_sub=n_sub, log2_te=log2_te, col_seed=col_seed,
               sign_seed=sign_seed, sub_seed=sub_seed, signed=signed,
@@ -86,42 +89,41 @@ def sketch_update(keys, vals, ts, *, width: int, n_sub: int, log2_te: int,
     if backend == "ref" or dev.type == "cpu":
         out = sketch_update_ref(keys, vals, ts, **kw)
     else:
-        out = _launch(keys.contiguous(), vals.contiguous(), ts.contiguous(),
-                      **kw)
+        out = _launch(_aligned(keys), _aligned(vals), _aligned(ts), **kw)
     return _guard_peak(out, check_overflow)
 
 
-def launch_geometry(n_packets: int, width: int, n_sub: int, smem: int,
-                    n_sms: int):
-    """``(w_blk, n_chunks, chunk)``: columns per CTA (the widest tile that
-    fits), and the packet axis cut into chunks so that width blocks x
-    chunks fill about two waves of the card, as far as chunks of at least
-    ``MIN_CHUNK`` packets allow (a 32 768-slot row at one width block
-    gets 64 CTAs, at four 256)."""
-    w_blk = launch_w_blk(n_sub, width, smem)
-    n_wb = -(-width // w_blk)
-    n_chunks = max(1, min(-(-2 * n_sms // n_wb),
-                          n_packets // MIN_CHUNK))
-    return w_blk, n_chunks, max(-(-n_packets // n_chunks), 1)
+def single_geometry(n_packets: int) -> int:
+    """Kernel B2's grid.  Thread ``i`` of CTA ``c`` loads slots
+    ``[4 q, 4 q + 4)``, ``q = c * CTA_THREADS + i``; the grid covers the
+    stream's ``ceil(n_packets / 4)`` loads, and lanes past them hold
+    zeros."""
+    n_quads = -(-n_packets // SLOTS_PER_THREAD)
+    return _grid(-(-n_quads // CTA_THREADS))
 
 
 def _launch(keys, vals, ts, *, width, n_sub, log2_te, col_seed, sign_seed,
             sub_seed, signed, level, mitigation):
+    """Launch kernel B2 on 16-byte aligned streams whose length is a
+    multiple of 4 (``sketch_update`` pads and aligns them)."""
     dev = keys.device
-    out = torch.zeros((n_sub, width), dtype=torch.float32, device=dev)
     n_packets = keys.shape[0]
+    if n_packets % SLOTS_PER_THREAD:
+        raise ValueError(f"{n_packets} packets are not a multiple of "
+                         f"{SLOTS_PER_THREAD} (one 16-byte load)")
+    grid = single_geometry(n_packets)
+    if grid == 0:   # no packet slots
+        return torch.zeros((n_sub, width), dtype=torch.float32, device=dev)
+    out = torch.empty((n_sub, width), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         lib = kernel_lib("sketch_update", *_ARGS)
-        w_blk, n_chunks, chunk = launch_geometry(
-            n_packets, width, n_sub, max_smem(lib, "sketch_update", dev.index),
-            torch.cuda.get_device_properties(dev).multi_processor_count)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sketch_update_launch(
             keys.data_ptr(), vals.data_ptr(), ts.data_ptr(), out.data_ptr(),
-            n_packets, chunk, n_chunks, width, n_sub,
-            int(math.log2(n_sub)), w_blk, log2_te, int(col_seed),
-            int(sign_seed), int(sub_seed), int(level), int(mitigation),
-            int(signed), stream)
+            n_packets // SLOTS_PER_THREAD, grid, width, n_sub,
+            int(math.log2(n_sub)), log2_te, int(col_seed), int(sign_seed),
+            int(sub_seed), int(level), int(mitigation), int(signed),
+            stream)
     check_launch(err, "sketch_update")
     sketch_update.launches += 1
     return out

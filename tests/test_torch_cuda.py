@@ -228,3 +228,44 @@ def test_fleet_kernels_on_fractional_values_on_card(cuda_device, layout):
     want = fn(*args, device="cpu", **kw)
     assert (want != torch.round(want)).any()     # fractional counters
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["heavy-hitter", "fractional", "level"])
+def test_single_kernel_on_stress_rows_on_card(cuda_device, case):
+    """B2 on a row that one key dominates (its counter an exact integer
+    near 10^6), on fractional values (multiples of 1/4, exact in any
+    order) that many lanes share, and on a UnivMon level row with §4.4
+    mitigation over 2^20 packets: equal to its plain version bit for
+    bit."""
+    from repro_torch.kernels.sketch_update import ops
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n = 1 << 20
+    kw = dict(width=123974, n_sub=2, log2_te=16, col_seed=11, sign_seed=22,
+              sub_seed=33, signed=True)
+    vals = rng.integers(1, 4, n).astype(np.float32)
+    if case == "heavy-hitter":
+        keys = _stress_keys(case, rng)
+    elif case == "fractional":
+        n = 1 << 16
+        pool = rng.integers(0, 2 ** 32, 16, dtype=np.uint64
+                            ).astype(np.uint32)
+        keys = pool[rng.integers(0, 16, n)]
+        vals = (rng.integers(1, 8, n) / 4).astype(np.float32)
+        kw.update(width=3728, n_sub=1)
+    else:
+        keys = rng.integers(0, 2 ** 32, n, dtype=np.uint64
+                            ).astype(np.uint32)
+        kw.update(width=7748, n_sub=4, level=3, mitigation=True)
+    ts = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    before = ops.sketch_update.launches
+    got = ops.sketch_update(keys, vals, ts, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert ops.sketch_update.launches == before + 1
+    plain = ops.sketch_update(keys, vals, ts, device=cuda_device,
+                              backend="ref", **kw)
+    if case == "heavy-hitter":
+        assert float(plain.abs().max()) > 1e5
+    if case == "fractional":
+        assert (plain != torch.round(plain)).any()
+    assert torch.equal(got, plain)

@@ -20,7 +20,6 @@ from repro.kernels.sketch_update import fleet as RK
 from repro_torch.core import fleet as TF
 from repro_torch.core.fragment import FragmentConfig as TCfg
 from repro_torch.kernels.sketch_update import fleet as TK
-from repro_torch.kernels.sketch_update import ops as TO
 
 LOG2_TE = 12
 EPOCH = 5
@@ -222,28 +221,6 @@ def test_dense_runner_refusals():
     with pytest.raises(ValueError, match="per-epoch only"):
         runner.run_window(EPOCH, {sw: 1 for sw in range(5)},
                           [c["tp"], c["tp"]])
-
-
-def test_launch_geometry_fills_the_card():
-    """B2 splits the packet axis so a single wide fragment still spreads
-    over the SMs, and never cuts chunks below MIN_CHUNK packets."""
-    smem, sms = 232448, 132
-    w_blk, n_chunks, chunk = TO.launch_geometry(300_000, 123974, 1, smem,
-                                                sms)
-    n_wb = -(-123974 // w_blk)
-    assert w_blk == 32768 and n_wb == 4
-    assert n_wb * n_chunks >= 2 * sms and n_chunks * chunk >= 300_000
-    assert chunk >= TO.MIN_CHUNK
-    # one row of an epoch rectangle at §6.1: chunks of one slot a thread
-    assert TO.launch_geometry(32768, 3728, 1, smem, sms) == (4096, 64, 512)
-    assert TO.launch_geometry(32768, 123974, 1, smem, sms) == (32768, 64,
-                                                                 512)
-    w_blk, n_chunks, chunk = TO.launch_geometry(1000, 300, 256, smem, sms)
-    assert (n_chunks, chunk) == (1, 1000)
-    assert 256 * w_blk * 4 <= smem
-    assert TO.launch_geometry(0, 64, 1, smem, sms)[1:] == (1, 1)
-    with pytest.raises(ValueError, match="does not fit"):
-        TO.launch_geometry(10, 64, 1 << 16, smem, sms)
 
 
 def test_library_digest_covers_included_headers(tmp_path, monkeypatch):

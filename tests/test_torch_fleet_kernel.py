@@ -25,7 +25,6 @@ from repro_torch.core import fleet as TF
 from repro_torch.core.fragment import FragmentConfig as TCfg
 from repro_torch.kernels.sketch_query import engine as TE
 from repro_torch.kernels.sketch_update import fleet as TK
-from repro_torch.kernels.sketch_update import kernel as TKK
 
 LOG2_TE = 12
 BLK = 256
@@ -159,15 +158,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                                log2_te=LOG2_TE)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TF.FleetEpochRunner({0: TCfg(0, "cs", 4000)}, LOG2_TE)
-
-
-@pytest.mark.parametrize("n_sub,width,smem,want", [
-    (1, 123_974, 232_448, 32_768), (16, 123_974, 232_448, 2048),
-    (64, 20_000, 232_448, 512), (1024, 3728, 232_448, 32),
-    (2, 300, 232_448, 512), (8, 1, 232_448, 1)])
-def test_launch_geometry(n_sub, width, smem, want):
-    w = TKK.launch_w_blk(n_sub, width, smem)
-    assert w == want and n_sub * w * 4 <= smem
 
 
 def _ragged_shares(n_blocks, blk):

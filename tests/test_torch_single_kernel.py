@@ -7,10 +7,14 @@ its jnp scatter oracle ``sketch_update(backend="ref")`` (no Pallas) and
 its per-switch numpy update ``process_epoch``.  Cases cover cs and cms,
 UnivMon level rows and §4.4 mitigation on folded timestamps, widths up to
 262144 (above the 65536 hash wrap), ``n_sub`` up to 256, and packet
-counts that are not multiples of ``blk``.  The CUDA kernel is held to the
-same plain version on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+counts that are not multiples of ``blk``.  The kernel's launch geometry
+(``single_geometry``) and its padding are pure Python and are tested here
+too: the plain version run CTA share by CTA share sums to the reference.
+The CUDA kernel is held to the same plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +24,8 @@ from repro.core.fragment import FragmentConfig as RCfg
 from repro.core.fragment import frag_seed, level_seed_mix, process_epoch
 from repro.kernels.sketch_update import ops as RO
 from repro_torch.kernels.sketch_update import ops as TO
-from repro_torch.kernels.sketch_update.kernel import EXACT_BOUND
+from repro_torch.kernels.sketch_update.kernel import (EXACT_BOUND,
+                                                      LVL_SHIFT, SH_SHIFT)
 
 LOG2_TE = 12
 EPOCH = 3
@@ -165,3 +170,93 @@ def test_padding_does_not_change_counters():
     assert all(torch.equal(o, outs[0]) for o in outs)
     assert torch.equal(TO.sketch_update(keys, vals, ts, mitigation=True,
                                         **kw), outs[0])
+
+
+@pytest.mark.parametrize("n_packets", [0, 4, 777, 1024, 32_768, 300_001])
+def test_single_geometry_covers_every_slot_once(n_packets):
+    """Kernel B2's launch: thread ``i`` of CTA ``c`` loads slots ``[4 q,
+    4 q + 4)``, ``q = c * CTA_THREADS + i``.  Every slot of the stream lies
+    in exactly one load, no CTA holds only slots past the end, and a grid
+    past CUDA's limit raises."""
+    threads = TO.CTA_THREADS
+    grid = TO.single_geometry(n_packets)
+    q = np.arange(grid * threads, dtype=np.int64)
+    slots = (4 * q[:, None] + np.arange(4)).ravel()
+    np.testing.assert_array_equal(slots[slots < n_packets],
+                                  np.arange(n_packets))
+    assert (grid == 0 if n_packets == 0
+            else 4 * (grid - 1) * threads < n_packets)
+    with pytest.raises(ValueError, match="grid limit"):
+        TO.single_geometry(4 * threads * 2 ** 31 + n_packets)
+
+
+SHARE_CASES = {
+    # kind, width, n_sub, level, mitigation
+    "cs": ("cs", 70_000, 4, 0, False),
+    "cms": ("cms", 3728, 8, 0, False),
+    "um-level3": ("um", 2000, 4, 3, False),
+    "cs-mit": ("cs", 4000, 8, 0, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARE_CASES))
+def test_single_chunk_shares_sum_to_reference_oracle(name):
+    """The kernel's cut of the stream: the plain version run over each
+    CTA's share (``CTA_THREADS x 4`` slots) and summed over the shares equals
+    the reference's oracle bit for bit.  Counters are integer sums below
+    2^24, so the order in which the CTAs' atomics land changes no bit."""
+    kind, width, n_sub, level, mit = SHARE_CASES[name]
+    n = 6007
+    keys, vals, ts, sh = _stream(n, sum(map(ord, name)))
+    rng = np.random.default_rng(len(name))
+    fts = (ts.astype(np.uint32)
+           | (rng.integers(0, 6, n).astype(np.uint32) << LVL_SHIFT)
+           | (sh.astype(np.uint32) << SH_SHIFT))
+    vals = vals.astype(np.float32)
+    kw = dict(width=width, n_sub=n_sub, log2_te=LOG2_TE, col_seed=11,
+              sign_seed=22, sub_seed=33, signed=kind != "cms", level=level,
+              mitigation=mit)
+    want = np.asarray(RO.sketch_update(keys, vals, fts, backend="ref", **kw))
+    grid = TO.single_geometry(n)
+    share = 4 * TO.CTA_THREADS
+    assert grid == -(-n // share) > 1
+    total = torch.zeros((n_sub, width), dtype=torch.float32)
+    for c in range(grid):
+        part = slice(c * share, (c + 1) * share)
+        total += TO.sketch_update(keys[part], vals[part], fts[part],
+                                  backend="ref", device="cpu", **kw)
+    np.testing.assert_array_equal(total.numpy(), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("blk", [1000, 1001])
+def test_padding_to_four_for_any_blk(blk, monkeypatch):
+    """The wrapper pads the stream with value-0 packets to a multiple of
+    both ``blk`` and 4 (the kernel's 16-byte load), whatever ``blk`` the
+    caller gives, as the reference accepts any; the padding changes no
+    counter."""
+    seen = []
+    plain = TO.sketch_update_ref
+
+    def spy(keys, vals, ts, **kw):
+        seen.append(keys.shape[0])
+        return plain(keys, vals, ts, **kw)
+
+    monkeypatch.setattr(TO, "sketch_update_ref", spy)
+    n = 2503
+    keys, vals, ts, _ = _stream(n, blk)
+    vals = vals.astype(np.float32)
+    kw = dict(width=3000, n_sub=2, log2_te=LOG2_TE, col_seed=1, sign_seed=2,
+              sub_seed=3)
+    got = TO.sketch_update(keys, vals, ts, blk=blk, device="cpu", **kw)
+    (padded,) = seen
+    assert padded % 4 == 0 and padded % blk == 0
+    assert 0 <= padded - n < math.lcm(blk, 4)
+    want = np.asarray(RO.sketch_update(keys, vals, ts, backend="ref",
+                                       blk=blk, **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    unpadded = plain(torch.from_numpy(keys.view(np.int32).copy()),
+                     torch.from_numpy(vals),
+                     torch.from_numpy(ts.astype(np.uint32).view(np.int32)),
+                     signed=True, **kw)
+    assert torch.equal(got, unpadded)
