@@ -9,21 +9,31 @@ update), holds each against its plain PyTorch version on the card, also
 on timed stress cases (a heavy hitter beside uniform keys, a 10^6-packet
 row, fractional values; an n = 256 group for B1 and B3; a UnivMon level
 row and a §4.4 row of 2^20 packets for B2), then
-drives two paths through the user entry points at the paper's §6.1
-full-scale setting, for cs and cms:
+drives these paths through the user entry points at the paper's §6.1
+full-scale setting:
 
-* the fleet window path: ``DiSketchSystem`` + ``Replayer.run(system,
-  window=8)`` + ``query_flows(merge="fragment")`` on the device (B1);
-* the per-epoch path: ``calibrate_rho_target``, then ``DiSketchSystem`` +
-  ``Replayer.run(system)`` epoch by epoch with the default ragged layout
-  (B1) and with ``layout="dense"`` (B3), the loop-of-kernels baseline
-  ``fleet_update_loop`` on one epoch (B2), and ``query_flows`` with the
-  default subepoch merge for DiSketch and DISCO.
+* the fleet window path, cs and cms: ``DiSketchSystem`` +
+  ``Replayer.run(system, window=8)`` + ``query_flows(merge="fragment")``
+  on the device (B1); then one record of window 8 is touched, which copies
+  that window to the host as its row groups, and queried with the default
+  subepoch merge;
+* the per-epoch path, cs and cms: ``calibrate_rho_target``, then
+  ``DiSketchSystem`` + ``Replayer.run(system)`` epoch by epoch with the
+  default ragged layout (B1) and with ``layout="dense"`` (B3), the
+  loop-of-kernels baseline ``fleet_update_loop`` on one epoch (B2), and
+  ``query_flows`` with the default subepoch merge for DiSketch and DISCO;
+* UnivMon (16 levels, 320 level rows) on both: the window-8 replay (B1)
+  and ``query_entropy(merge="fragment")`` on the device (the all-levels
+  gather/merge and the G-sum); the per-epoch replay (B1), the B2 loop over
+  one epoch's level rows, and ``query_entropy`` with both merges for
+  DiSketch and the subepoch merge for DISCO;
+* ``AggregatedSystem`` for cs, cms and um on the core switches.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
 kernels, that the dense, ragged and loop counters are bit-identical, and
-that the answers are right.
+that the answers are right: the RMSEs and entropies are pinned to the JAX
+reference's values at this setting.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -48,8 +58,54 @@ N_FLOWS, N_PACKETS, N_EPOCHS, LOG2_TE, SEED = 200_000, 2_000_000, 32, 16, 1
 BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 # rho_target per kind: the JAX reference's calibrate_rho_target (median
 # probe-epoch PEB at n = 1 on the epoch n_epochs // 2 streams) evaluated
-# once on a CPU at exactly this setting.
-RHO = {"cs": 15.67, "cms": 1.0}
+# once on a CPU at exactly this setting (UnivMon with n_levels=16 and the
+# network-wide level_seed 7777: 63.30671088217913).
+RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
+N_LEVELS, LEVEL_SEED = 16, 7777
+# Answers pinned at this setting, each computed once on a CPU by the JAX
+# reference's numpy paths (no Pallas) with the RHO above and the same
+# workload, by scripts/reference_pins.py (which also gives RHO["um"]); the
+# smoke holds the port to them within PIN_RTOL, and the UnivMon entropies
+# of the device plane (f32 merge and G-sum) within PIN_RTOL_F32.
+PIN_RTOL, PIN_RTOL_F32 = 1e-6, 1e-5
+# RMSE of all 5-hop flows.  Per-epoch: the reference's loop backend
+# (DiSketchSystem and DiscoSystem, Replayer.run, query_flows with the
+# subepoch and the fragment merge).  Window 8: the reference's
+# process_epoch with ns frozen for each window of 8 and Eq. 6 replayed in
+# order at its end, then query_window(merge="fragment") per path group.
+RMSE_PIN = {
+    ("cs", "window 8"): 0.5982554646551216,
+    ("cs", "subepoch"): 0.7363271811200329,
+    ("cs", "fragment"): 0.5977069010872829,
+    ("cs", "disco"): 0.6668421139659481,
+    ("cms", "window 8"): 19.071132705491884,
+    ("cms", "subepoch"): 1.1747041468698007,
+    ("cms", "fragment"): 2.348328296754005,
+    ("cms", "disco"): 0.07074468967211545,
+}
+# The reference's AggregatedSystem (depth 4, each core switch's memory;
+# UnivMon with 16 levels), Replayer.run, then query_flows of the 5-hop
+# flows at their core switch over the 32 epochs: RMSE.
+AGG_RMSE_PIN = {"cs": 22.397749911646983, "cms": 2.0436255854263385,
+                "um": 294.4489068656193}
+# UnivMon entropy in bits of all 200 000 flows (n_levels 16).  Per-epoch
+# control, over the first ENTROPY_EPOCHS epochs: the reference's loop
+# backend's query_entropy, subepoch merge with k_heavy 1024 for DiSketch
+# and DISCO, and the fragment merge with k_heavy = every key (a cutoff that
+# does not bind, so no tie among equal estimates can select other keys
+# than the device's stable order).  Window 8: the emulation above for
+# UnivMon, um_gsum_window's per-level estimates (merge="fragment") over the
+# 32 epochs, combined by um_gsum_combine with k_heavy = every key, and by
+# the reference's device G-sum (_um_gsum_jit: lax.top_k, ties to the lower
+# index) with the default k_heavy 1024, the cutoff query_entropy uses.
+ENTROPY_EPOCHS = 8
+ENTROPY_PIN = {
+    "disketch subepoch": 10.810002453514972,
+    "disco subepoch": 10.884638574135062,
+    "disketch fragment": 10.880950946975236,
+    "window 8 fragment": 11.471188325072735,
+    "window 8 fragment k_heavy 1024": 11.503352649492847,
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -62,6 +118,22 @@ OPS_PER_PAIR = 46
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _pinned(what: str, got: float, want: float, rtol: float) -> None:
+    """Fail unless ``got`` is the pinned reference value to ``rtol``."""
+    rel = abs(got - want) / abs(want)
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: {got!r} against the reference's "
+                             f"{want!r} (relative {rel:.3g} > {rtol})")
+
+
+def _phase(fn, *args):
+    """Run one phase of the smoke and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _log(f"phase   {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _nvidia_smi() -> str:
@@ -537,18 +609,19 @@ def _window_groups(fleet, rep, e0, n_epochs=WINDOW):
 
 def _smallest_path(fleet, e0, paths):
     """The path whose rows span the least ``n_sub x width`` in window
-    ``e0``, and a host copy of just its rows: ``(path, (E, len, S, W)
-    array, row indices)``."""
+    ``e0``, and a host copy of just its rows (every level's, for UnivMon,
+    fragment-major): ``(path, (E, len, S, W) array, row indices)``."""
     groups = fleet._window_bufs[e0][0].device()
     where = {int(r): (c, j) for rows, c in groups for j, r in enumerate(rows)}
-    pos = {sw: i for i, sw in enumerate(fleet.frag_order)}
+    L = fleet.n_levels
+    pos = {sw: i * L for i, sw in enumerate(fleet.frag_order)}
 
     def span(path):
         cs = [where[pos[sw]][0] for sw in path]
         return max(c.shape[2] for c in cs) * max(c.shape[3] for c in cs)
 
     path = min(sorted(set(paths)), key=span)
-    rows = np.array([pos[sw] for sw in path])
+    rows = np.array([pos[sw] + l for sw in path for l in range(L)])
     parts = [where[r][0][:, where[r][1]] for r in rows]
     dense = np.zeros((parts[0].shape[0], len(rows),
                       max(p.shape[1] for p in parts),
@@ -594,7 +667,7 @@ def main_path(dev, sc):
     import torch
 
     from repro_torch.core.disketch import DiSketchSystem
-    from repro_torch.core.query import fleet_query_window
+    from repro_torch.core.query import fleet_query_window, path_groups
     from repro_torch.kernels.sketch_update import fleet as FK
     from repro_torch.net.simulator import rmse
 
@@ -641,11 +714,14 @@ def main_path(dev, sc):
         buf = fleet._window_bufs[e0][0]
         groups = _window_groups(fleet, rep, e0)
         err = 0.0
+        plain_host = []
         for (args, kw), (_, got) in zip(groups, buf.device()):
             plain = FK.fleet_update_ragged_ref(*_to_device(args, dev), **kw)
             got = got.reshape(plain.shape)
             err = max(err, float((got - plain).abs().max()))
             assert torch.equal(got, plain), f"{kind}: window stack != plain"
+            if kind == "cs":            # for the host copy's check below
+                plain_host.append(plain.cpu().numpy())
             del plain
         result["max_abs_err"] = max(result["max_abs_err"], err)
 
@@ -656,6 +732,8 @@ def main_path(dev, sc):
         q_s = time.perf_counter() - q0
         assert est.shape == keys.shape and np.isfinite(est).all()
         err_rmse = rmse(est, truth)
+        _pinned(f"{kind} window 8 RMSE", err_rmse, RMSE_PIN[(kind, "window 8")],
+                PIN_RTOL)
         # ... and, per window, the path group whose rows are the smallest
         # against the numpy oracle on a host copy of just those rows (the
         # buffers themselves stay resident)
@@ -682,14 +760,59 @@ def main_path(dev, sc):
              f"{peak} B; n_sub per window {n_by_window}; group shapes "
              f"{shapes}; window {e0} counters == plain version (max_abs_err "
              f"{err}); query of {len(keys)} 5-hop flows {q_s:.2f} s, RMSE "
-             f"{err_rmse:.4f}; device == host oracle in every window; "
-             f"window stacks never copied to the host")
+             f"{err_rmse!r} (the reference's, pinned); device == host "
+             f"oracle in every window; window stacks never copied to the "
+             f"host")
         if kind == "cs":
             result["timing"] = kernel_timing(
                 _window_groups(system.fleet, rep, WINDOW), dev)
-        del system, fleet, bufs, buf
+            host_copy(system, keys, paths, plain_host)
+        del system, fleet, bufs, buf, plain_host
     profile_replay(mems, rep)
     return result
+
+
+def host_copy(system, keys, paths, plain_host):
+    """The record plane on a replayed window: touch one record
+    of window 8, which copies that window to the host as its row groups;
+    check the copy against the plain version's counters (``plain_host``,
+    one array per group) and that every record is a view of its group;
+    query the window with the default subepoch merge; and hold the fleet's
+    host query branch, which reads the groups, to the device answer it
+    gave before the copy."""
+    fleet = system.fleet
+    buf = fleet._window_bufs[WINDOW][0]
+    es = list(range(WINDOW, 2 * WINDOW))
+    path, _, _ = _smallest_path(fleet, WINDOW, paths)
+    kk = keys[[p == path for p in paths]]
+    before = fleet.window_query(es, kk, path=path)
+    group_bytes = sum(c.numel() * 8 for _, c in buf.device())
+    padded_bytes = int(np.prod(buf._shape)) * 8
+    h0 = time.perf_counter()
+    system.records[WINDOW][fleet.frag_order[0]]   # <- touches one record
+    copy_s = time.perf_counter() - h0
+    assert not buf.resident and buf.host_bytes == group_bytes
+    for (_, c), p in zip(buf.host(), plain_host):
+        assert np.array_equal(c, p.reshape(c.shape).astype(np.int64)), \
+            "host copy != plain version"
+    for e in es:
+        for sw in fleet.frag_order:
+            assert any(np.shares_memory(system.records[e][sw].counters, c)
+                       for _, c in buf.host()), "a record is not a view"
+    n_q = min(4096, len(keys))
+    q0 = time.perf_counter()
+    est = system.query_flows(keys[:n_q], paths[:n_q], es)   # subepoch merge
+    q_s = time.perf_counter() - q0
+    assert est.shape == (n_q,) and np.isfinite(est).all()
+    np.testing.assert_allclose(fleet.window_query(es, kk, path=path), before,
+                               rtol=1e-6, atol=1e-6)
+    _log(f"c5      cs window {WINDOW}: touching one record copied the window "
+         f"to the host as {len(buf.host())} row groups, {buf.host_bytes} B "
+         f"int64 (the padded (E, R, n_sub_max, width_max) copy "
+         f"{buf._shape}: {padded_bytes} B) in {copy_s:.3f} s; copy == the "
+         f"plain version; records are views of their groups; subepoch-merge "
+         f"query of {n_q} 5-hop flows over epochs {es[0]}-{es[-1]} "
+         f"{q_s:.2f} s; host window_query == the device's before the copy")
 
 
 def _n_trajectory(n_log):
@@ -882,16 +1005,336 @@ def epoch_path(dev, sc):
         est_o = disco.query_flows(keys, paths, epochs)
         q_o = time.perf_counter() - q1
         assert est_o.shape == keys.shape and np.isfinite(est_o).all()
+        for merge, got in (("subepoch", est), ("fragment", frag_dev),
+                           ("disco", est_o)):
+            _pinned(f"{kind} per-epoch {merge} RMSE", rmse(got, truth),
+                    RMSE_PIN[(kind, merge)], PIN_RTOL)
         _log(f"epoch   {kind} queries (all {len(keys)} 5-hop flows, "
              f"{N_EPOCHS} epochs, subepoch merge): DiSketch RMSE {rmse(est, truth):.4f} in "
              f"{q_s:.2f} s; DISCO RMSE {rmse(est_o, truth):.4f} in "
              f"{q_o:.2f} s (DISCO replay {host_o:.2f} s, launches "
              f"{counts_o}); fragment merge: RMSE {rmse(frag_dev, truth):.4f}"
-             f" on the device == the record plane (1e-6)")
+             f" on the device == the record plane (1e-6); all three RMSEs "
+             f"the reference's (pinned)")
         del system, dense, disco, fleet
         torch.cuda.empty_cache()
     profile_replay(mems, rep, window=1)
     return res
+
+
+def _gsum_stable_f64(ests, lvl, k_heavy=1024):
+    """The top-down G-sum of ``core.query.um_gsum_combine`` for the entropy
+    ``g``, in float64, selecting as the device does: the ``k_heavy``
+    largest estimates with ties broken by the lower index (the host
+    combine's ``np.argsort`` is not stable)."""
+    y = 0.0
+    top = ests.shape[0] - 1
+    for l in range(top, -1, -1):
+        idx = np.flatnonzero(lvl >= l)
+        est = np.maximum(ests[l, idx], 1.0)
+        order = np.argsort(-est, kind="stable")[:k_heavy]
+        gv = est[order] * np.log2(est[order])
+        in_next = (lvl[idx][order] >= l + 1).astype(np.float64)
+        y = float(gv.sum()) if l == top else \
+            2.0 * y + float(((1.0 - 2.0 * in_next) * gv).sum())
+    return y
+
+
+def univmon_window(dev, sc):
+    """UnivMon on the fleet window path at the §6.1 setting (16 levels: 320
+    level rows): the replay (B1 over every level row), one window's level
+    groups against the plain version, ``query_entropy(merge="fragment")``
+    of all flows over the 32 epochs on the device, its per-level estimates
+    against the host per-level query on a few path groups, and the device
+    G-sum against the float64 combine.  Returns what the kernel line
+    needs."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem, _g_entropy
+    from repro_torch.core.hashing import level_of
+    from repro_torch.core.query import fleet_query_window, path_groups
+    from repro_torch.core.sketches import true_entropy
+    from repro_torch.kernels.sketch_query import um_gsum_device
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    wl, rep, mems, events = sc["wl"], sc["rep"], sc["mems"], sc["events"]
+    epochs = list(range(N_EPOCHS))
+    n_windows = -(-N_EPOCHS // WINDOW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = DiSketchSystem(mems, "um", rho_target=RHO["um"],
+                            log2_te=LOG2_TE, n_levels=N_LEVELS)
+    fleet = system.fleet
+    assert fleet.level_seed == LEVEL_SEED
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    h0 = time.perf_counter()
+    start.record()
+    rep.run(system, window=WINDOW)          # <- the UnivMon window path
+    end.record()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - h0
+    counts = read_counts()
+    launches = counts["fleet_ragged"]
+    expected = sum(len(np.unique(fleet._params_log[e0][:, FK.PARAM_N_SUB]))
+                   for e0 in range(0, N_EPOCHS, WINDOW))
+    assert launches == expected > 0, (counts, expected)
+    assert counts["sketch_update"] == counts["fleet_dense"] == 0, counts
+    window_ms = start.elapsed_time(end) / n_windows
+    bufs = list({id(b): b for b, _ in fleet._window_bufs.values()}.values())
+    assert all(b.resident and b._host is None
+               and all(c.is_cuda for _, c in b.device()) for b in bufs)
+    stack_bytes = sum(c.numel() * 4 for b in bufs for _, c in b.device())
+    rows = len(fleet.frag_order) * N_LEVELS
+    peak_replay = torch.cuda.max_memory_allocated()
+
+    # window 8's level-row groups against the plain version
+    err = 0.0
+    for (args, kw), (_, got) in zip(_window_groups(fleet, rep, WINDOW),
+                                    fleet._window_bufs[WINDOW][0].device()):
+        plain = FK.fleet_update_ragged_ref(*_to_device(args, dev), **kw)
+        got = got.reshape(plain.shape)
+        err = max(err, float((got - plain).abs().max()))
+        assert torch.equal(got, plain), "um window groups != plain version"
+        del plain
+
+    # entropy of all flows over the 32 epochs, on the device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = float(len(wl.pkt_ts))
+    truth = true_entropy(wl.sizes)
+    q0 = time.perf_counter()
+    ent = system.query_entropy(wl.keys, wl.paths, epochs, total,
+                               n_levels=N_LEVELS, level_seed=LEVEL_SEED,
+                               merge="fragment")
+    q_s = time.perf_counter() - q0
+    _pinned("um window 8 entropy (fragment merge)", ent,
+            ENTROPY_PIN["window 8 fragment k_heavy 1024"], PIN_RTOL_F32)
+    # the same per-level estimates, whose G-sum gave ``ent``; the device
+    # G-sum against the float64 combine with the device's selection
+    by_path = path_groups(wl.paths)
+    q1 = time.perf_counter()
+    ests = np.concatenate([fleet.um_level_window_query(
+        epochs, wl.keys[i], path=p) for p, i in by_path.items()], axis=1)
+    ests_s = time.perf_counter() - q1
+    lvl = np.concatenate([level_of(wl.keys[i], LEVEL_SEED, N_LEVELS)
+                          for i in by_path.values()])
+    assert ests.shape == (N_LEVELS, len(wl.keys))
+    s_dev = um_gsum_device(ests, lvl, _g_entropy, device=dev)
+    assert np.log2(total) - s_dev / total == ent
+    s_host = _gsum_stable_f64(ests, lvl)
+    gsum_rel = abs(s_dev - s_host) / abs(s_host)
+    assert gsum_rel <= 1e-5, (s_dev, s_host)
+    s_all = um_gsum_device(ests, lvl, _g_entropy, k_heavy=len(wl.keys),
+                           device=dev)
+    ent_all = float(np.log2(total) - s_all / total)
+    _pinned("um window 8 entropy (fragment merge, k_heavy = every key)",
+            ent_all, ENTROPY_PIN["window 8 fragment"], PIN_RTOL_F32)
+    # per window, a 5-, a 3- and a 1-hop path group: the device (L, K)
+    # estimates against the host per-level query on a copy of those rows
+    checked = 0
+    for w0 in range(0, N_EPOCHS, WINDOW):
+        es = list(range(w0, min(w0 + WINDOW, N_EPOCHS)))
+        for hops in (5, 3, 1):
+            path, dense, prow = _smallest_path(
+                fleet, w0, [p for p in by_path if len(p) == hops])
+            kk = wl.keys[by_path[path]]
+            got = fleet.um_level_window_query(es, kk, path=path)
+            params = [fleet._params_log[e][prow] for e in es]
+            for l in range(N_LEVELS):
+                host = fleet_query_window(
+                    list(dense), params, None, kk, "um",
+                    frag_sel=np.arange(len(prow)) % N_LEVELS == l)
+                np.testing.assert_allclose(got[l], host, rtol=1e-6,
+                                           atol=1e-6)
+            checked += len(kk)
+    assert all(b.resident and b._host is None for b in bufs), \
+        "a UnivMon window left the device"
+    peak_query = torch.cuda.max_memory_allocated()
+    timing = kernel_timing(_window_groups(fleet, rep, WINDOW), dev)
+    n_by_window = [sorted(set(fleet._params_log[w0][:, FK.PARAM_N_SUB]
+                              .tolist()))
+                   for w0 in range(0, N_EPOCHS, WINDOW)]
+    _log(f"univmon window {WINDOW}: rho_target={RHO['um']} n_levels="
+         f"{N_LEVELS} ({rows} level rows) launches={launches} (expected "
+         f"{expected}); update {window_ms:.2f} ms/window (CUDA events; "
+         f"{events / (window_ms * n_windows / 1e3):.4g} packet-switch "
+         f"events/s; host {run_s:.2f} s total); resident {stack_bytes} B "
+         f"in {len(bufs)} windows, peak device memory {peak_replay} B in the "
+         f"replay, {peak_query} B in the queries; n_sub per "
+         f"window {n_by_window}; window {WINDOW} level groups == plain "
+         f"version (max_abs_err {err})")
+    _log(f"univmon entropy of {len(wl.keys)} flows over {N_EPOCHS} epochs, "
+         f"fragment merge on the device: {ent!r} bits (true "
+         f"{truth!r}; |error| {abs(ent - truth):.4f}; the reference's, "
+         f"pinned) in {q_s:.2f} s "
+         f"(per-level estimates {ests_s:.2f} s); k_heavy = every key: "
+         f"{ent_all!r} (the reference's, pinned); device G-sum {s_dev!r} "
+         f"against the float64 combine {s_host!r} (relative {gsum_rel:.3g});"
+         f" device (L, K) == host per-level query for {checked} keys of "
+         f"12 path groups; windows stayed on the device")
+    _timing_line(f"fleet_ragged one um window ({timing['groups']} launches, "
+                 f"{N_LEVELS} levels)", timing)
+    del system, fleet, bufs
+    profile_replay(mems, rep, kind="um")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=err)
+
+
+def univmon_epoch(dev, sc):
+    """UnivMon on the per-epoch path at the §6.1 setting: calibration, the
+    ragged replay (B1, groups kept on the card), the B2 loop over the 320
+    level rows of the epoch with the most subepochs against B1, the
+    records and the plain version, and ``query_entropy`` with both merges
+    for DiSketch and the subepoch merge for DISCO.  Returns what the
+    kernel line needs."""
+    import torch
+
+    from repro_torch.core.disketch import (DiscoSystem, DiSketchSystem,
+                                           calibrate_rho_target)
+    from repro_torch.core.fleet import build_params, fold_packet_flags
+    from repro_torch.core.sketches import true_entropy
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    wl, rep, mems, events = sc["wl"], sc["rep"], sc["mems"], sc["events"]
+    c0 = time.perf_counter()
+    rho = calibrate_rho_target(mems, "um", rep.epoch_stream(N_EPOCHS // 2),
+                               LOG2_TE, n_levels=N_LEVELS)
+    assert abs(rho - RHO["um"]) <= 0.005, (rho, RHO["um"])
+    cal_s = time.perf_counter() - c0
+    torch.cuda.reset_peak_memory_stats()
+    system = DiSketchSystem(mems, "um", rho_target=RHO["um"],
+                            log2_te=LOG2_TE, n_levels=N_LEVELS,
+                            fleet_kwargs={"keep_stacked": True})
+    counts, host_s, dev_ms = _replay(rep, system)
+    peak = torch.cuda.max_memory_allocated()
+    expected = sum(len(set(_epoch_ns(system, e).values()))
+                   for e in range(N_EPOCHS))
+    assert counts["fleet_ragged"] == expected > 0, (counts, expected)
+    assert counts["fleet_dense"] == counts["sketch_update"] == 0, counts
+    fleet = system.fleet
+    L = N_LEVELS
+
+    # B2 loop over the level rows of the epoch with the most subepochs
+    e_star = max(range(N_EPOCHS),
+                 key=lambda e: (max(_epoch_ns(system, e).values()), -e))
+    ns = _epoch_ns(system, e_star)
+    params = build_params(fleet.fragments, e_star, ns, fleet.frag_order)
+    assert np.array_equal(params, fleet._params_log[e_star])
+    packet = fold_packet_flags(rep.epoch_packet(e_star, fleet.frag_order),
+                               LOG2_TE, n_levels=L, level_seed=LEVEL_SEED)
+    rect = packet.densify(fleet.blk)
+    kw = dict(n_sub_max=max(ns.values()), width_max=int(fleet.widths.max()),
+              log2_te=LOG2_TE, signed=True)
+    trect = _to_device(rect + (params, np.zeros(0, np.int32)), dev)[:4]
+    reset_counts()
+    loop = FK.fleet_update_loop(*trect, device=dev, **kw)   # <- B2 path
+    torch.cuda.synchronize()
+    counts_l = read_counts()
+    assert counts_l["sketch_update"] == len(params) == len(
+        fleet.frag_order) * L, counts_l
+    loop_plain = FK.fleet_update_loop(*trect, backend="ref", device=dev,
+                                      **kw)
+    torch.cuda.synchronize()
+    err = float((loop - loop_plain).abs().max())
+    assert torch.equal(loop, loop_plain), "um B2 loop != its plain version"
+    for rows, c in fleet._window_bufs[e_star][0].device():
+        part = loop[torch.as_tensor(rows, device=dev), :c.shape[2],
+                    :c.shape[3]]
+        assert torch.equal(c[0], part), "um B1 groups != the B2 loop"
+    for i, sw in enumerate(fleet.frag_order):
+        rec = system.records[e_star][sw]
+        assert np.array_equal(rec.counters, loop[i * L:(i + 1) * L, :rec.n,
+                              :rec.counters.shape[2]].cpu().numpy()
+                              .astype(np.int64)), "um record != B2 loop"
+    del loop, loop_plain
+
+    # entropy: the subepoch merge on the records and the fragment merge on
+    # the device, over the first ENTROPY_EPOCHS epochs
+    es = list(range(ENTROPY_EPOCHS))
+    in_es = (wl.pkt_ts >> LOG2_TE) < ENTROPY_EPOCHS
+    total = float(in_es.sum())
+    truth = true_entropy(np.bincount(wl.pkt_flow[in_es],
+                                     minlength=len(wl.keys)))
+    q0 = time.perf_counter()
+    ent_sub = system.query_entropy(wl.keys, wl.paths, es, total,
+                                   n_levels=L, level_seed=LEVEL_SEED)
+    q_sub = time.perf_counter() - q0
+    _pinned("um per-epoch entropy (subepoch merge)", ent_sub,
+            ENTROPY_PIN["disketch subepoch"], PIN_RTOL)
+    assert fleet.has_device_window(es)
+    q1 = time.perf_counter()
+    ent_frag = system.query_entropy(wl.keys, wl.paths, es, total,
+                                    n_levels=L, level_seed=LEVEL_SEED,
+                                    merge="fragment", k_heavy=len(wl.keys))
+    q_frag = time.perf_counter() - q1
+    _pinned("um per-epoch entropy (fragment merge on the device, k_heavy = "
+            "every key)", ent_frag, ENTROPY_PIN["disketch fragment"],
+            PIN_RTOL_F32)
+    disco = DiscoSystem(mems, "um", rho_target=RHO["um"], log2_te=LOG2_TE,
+                        n_levels=L)
+    counts_o, host_o, _ = _replay(rep, disco)
+    assert counts_o["fleet_ragged"] == N_EPOCHS, counts_o
+    q2 = time.perf_counter()
+    ent_disco = disco.query_entropy(wl.keys, wl.paths, es, total,
+                                    n_levels=L, level_seed=LEVEL_SEED)
+    q_disco = time.perf_counter() - q2
+    _pinned("um DISCO entropy (subepoch merge)", ent_disco,
+            ENTROPY_PIN["disco subepoch"], PIN_RTOL)
+    _log(f"univmon per-epoch: calibrate_rho_target = {rho!r} in "
+         f"{cal_s:.2f} s; launches {counts} (expected {expected}); update "
+         f"{dev_ms / N_EPOCHS:.3f} ms/epoch on the device timeline, host "
+         f"{host_s:.2f} s; peak device memory {peak} B; n after each epoch "
+         f"{_n_trajectory(system.n_log)}")
+    _log(f"univmon per-epoch B2 loop on epoch {e_star} ({len(params)} level "
+         f"rows, rectangle {rect[0].shape}): launches {counts_l}; == its "
+         f"plain version, == the replay's B1 groups, == the records")
+    _log(f"univmon per-epoch entropy of {len(wl.keys)} flows over epochs "
+         f"0-{ENTROPY_EPOCHS - 1} (true {truth!r}): subepoch merge "
+         f"{ent_sub!r} in {q_sub:.2f} s; fragment merge on the device "
+         f"(k_heavy = every key) {ent_frag!r} in {q_frag:.2f} s; DISCO "
+         f"{ent_disco!r} in {q_disco:.2f} s (replay {host_o:.2f} s, "
+         f"launches {counts_o}); all three the reference's (pinned)")
+    del system, disco, fleet
+    torch.cuda.empty_cache()
+    return dict(ragged=counts["fleet_ragged"] + counts_o["fleet_ragged"],
+                loop=counts_l["sketch_update"], max_abs_err=err)
+
+
+def aggregated_phase(dev, sc):
+    """The aggregated baselines (``AggregatedSystem``: a depth-4 sketch on
+    each core switch, int64 counters on the card) for cs, cms and um,
+    replayed epoch by epoch and queried for the 5-hop flows at their core
+    switch, as the comparison the disaggregated systems are held to."""
+    import torch
+
+    from repro_torch.core.disketch import AggregatedSystem
+    from repro_torch.net.simulator import rmse
+    from repro_torch.net.topology import FatTree, core_on_path
+
+    wl, rep, mems = sc["wl"], sc["rep"], sc["mems"]
+    topo = FatTree(4)
+    sel = wl.path_len == 5
+    core = core_on_path(wl.path_mat[sel], topo.core_ids)
+    epochs = list(range(N_EPOCHS))
+    for kind in ("cs", "cms", "um"):
+        agg = AggregatedSystem({sw: mems[sw] for sw in topo.core_ids}, kind,
+                               depth=4, n_levels=N_LEVELS, device=dev)
+        h0 = time.perf_counter()
+        rep.run(agg)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - h0
+        assert all(c.is_cuda for cs in agg.counters.values()
+                   for c in cs.values())
+        q0 = time.perf_counter()
+        est = agg.query_flows(sc["keys"], core, epochs)
+        q_s = time.perf_counter() - q0
+        err = rmse(est, sc["truth"])
+        _pinned(f"aggregated {kind} RMSE", err, AGG_RMSE_PIN[kind], PIN_RTOL)
+        _log(f"aggregated {kind}: depth 4 on {len(topo.core_ids)} core "
+             f"switches, replay {run_s:.2f} s, query of {len(core)} 5-hop "
+             f"flows {q_s:.2f} s, RMSE {err!r} (the reference's, pinned)")
 
 
 def _b2_rows(params, signed):
@@ -986,8 +1429,8 @@ def epoch_kernel_timing(res, dev):
     return out
 
 
-def profile_replay(mems, rep, window=WINDOW):
-    """One more cs replay (same inputs as the path it repeats) under
+def profile_replay(mems, rep, window=WINDOW, kind="cs"):
+    """One more replay (same inputs as the path it repeats) under
     torch.profiler: the device's busy share of the replay's wall time, the
     kernels that fill it, and the torch ops that take host time.  What the
     profiler does not see (numpy packing, Python) is the rest."""
@@ -996,8 +1439,8 @@ def profile_replay(mems, rep, window=WINDOW):
 
     from repro_torch.core.disketch import DiSketchSystem
 
-    system = DiSketchSystem(mems, "cs", rho_target=RHO["cs"],
-                            log2_te=LOG2_TE)
+    system = DiSketchSystem(mems, kind, rho_target=RHO[kind],
+                            log2_te=LOG2_TE, n_levels=N_LEVELS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1020,7 +1463,7 @@ def profile_replay(mems, rep, window=WINDOW):
     torch_cpu_ms = sum(e.self_cpu_time_total for e in on_host) / 1e3
     what = (f"{-(-N_EPOCHS // window)} windows of {window}" if window > 1
             else f"{N_EPOCHS} epochs, per-epoch control")
-    _log(f"profile cs replay, {what}: wall "
+    _log(f"profile {kind} replay, {what}: wall "
          f"{wall_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms "
          f"({100 * device_ms / (wall_s * 1e3):.2f}% of wall), torch ops on "
          f"the host {torch_cpu_ms:.1f} ms, the rest numpy/Python")
@@ -1066,13 +1509,27 @@ def kernel_timing(groups, dev):
         out_bytes = params.shape[0] * kw["n_sub_max"] * kw["width_max"] * 4
         in_bytes = _packet_bytes(len(keys), live) + params.nbytes + bf.nbytes
         bound_bytes_s += (in_bytes + out_bytes) / HBM_BYTES_PER_S
-        pairs = live * kw["n_levels"]
+        pairs = _passing_pairs(vals, args[2], kw["n_levels"])
         bound_ops_s += OPS_PER_PAIR * pairs / OPS_PER_S
     bound_by = "bytes" if bound_bytes_s >= bound_ops_s else "operations"
     return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                 bound_ms=1e3 * max(bound_bytes_s, bound_ops_s),
                 bound_by=bound_by, groups=len(groups),
                 contention=_heaviest_counters(launches))
+
+
+def _passing_pairs(vals, ts, n_levels):
+    """The (packet, level row) pairs that pass B1's level test: a live
+    packet once for cs and cms, and for UnivMon once per level up to its
+    own (its level id rides the ts bits from LVL_SHIFT)."""
+    from repro_torch.kernels.sketch_update.kernel import (LVL_FIELD_MASK,
+                                                          LVL_SHIFT)
+
+    live = vals != 0
+    if n_levels == 1:
+        return int(live.sum())
+    lvl = (ts[live] >> LVL_SHIFT) & LVL_FIELD_MASK
+    return int((lvl.astype(np.int64) + 1).sum())
 
 
 def _heaviest_counters(launches):
@@ -1145,24 +1602,29 @@ def main() -> int:
             for line in info["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     _log(f"ptxas   {line.strip()}")
-        worst = {"fleet_ragged": kernel_phase(dev),
-                 "sketch_update": kernel_phase_single(dev),
-                 "fleet_dense": kernel_phase_dense(dev)}
-        sc = build_scenario()
-        res = main_path(dev, sc)
+        worst = {"fleet_ragged": _phase(kernel_phase, dev),
+                 "sketch_update": _phase(kernel_phase_single, dev),
+                 "fleet_dense": _phase(kernel_phase_dense, dev)}
+        sc = _phase(build_scenario)
+        res = _phase(main_path, dev, sc)
         timing = res["timing"]
         _timing_line(f"fleet_ragged one cs window ({timing['groups']} "
                      f"launches)", timing)
-        ep = epoch_path(dev, sc)
-        ep_timing = epoch_kernel_timing(ep, dev)
+        ep = _phase(epoch_path, dev, sc)
+        ep_timing = _phase(epoch_kernel_timing, ep, dev)
+        um_w = _phase(univmon_window, dev, sc)
+        um_e = _phase(univmon_epoch, dev, sc)
+        _phase(aggregated_phase, dev, sc)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
-            ("fleet_ragged", "fleet.py:297", res["launches"] + ep["ragged"],
-             max(worst["fleet_ragged"], res["max_abs_err"]), timing),
-            ("sketch_update", "kernel.py:419", ep["loop"],
-             max(worst["sketch_update"], ep["max_abs_err"]),
-             ep_timing["sketch_update"]),
+            ("fleet_ragged", "fleet.py:297",
+             res["launches"] + ep["ragged"] + um_w["launches"] + um_e["ragged"],
+             max(worst["fleet_ragged"], res["max_abs_err"],
+                 um_w["max_abs_err"]), timing),
+            ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
+             max(worst["sketch_update"], ep["max_abs_err"],
+                 um_e["max_abs_err"]), ep_timing["sketch_update"]),
             ("fleet_dense", "fleet.py:160", ep["dense"],
              max(worst["fleet_dense"], ep["max_abs_err"]),
              ep_timing["fleet_dense"]),

@@ -9,10 +9,11 @@ resident window counters, or over the exported records (the record plane,
 
 ``DiscoSystem`` is the DISCO baseline [17]: the same per-row
 disaggregation without subepoching or equalization.
+``AggregatedSystem`` is the traditional baseline: a full (depth x width)
+sketch on each core switch (``core.sketches``).
 
 Not ported yet: churn events and the failure policies beyond "every
-fragment live", device meshes, the UnivMon all-levels queries
-(``query_entropy``) and ``AggregatedSystem``.
+fragment live", and device meshes.
 """
 from __future__ import annotations
 
@@ -20,9 +21,17 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from . import equalize, query
+from ..device import resolve_device
+from . import equalize, query, sketches
+from . import hashing as H
 from .fragment import EpochRecords, FragmentConfig, process_epoch
+
+
+def _g_entropy(x: torch.Tensor) -> torch.Tensor:
+    """The entropy G-function of the device G-sum, ``x log2 max(x, 1)``."""
+    return x * torch.log2(torch.clamp_min(x, 1.0))
 
 
 @dataclass
@@ -204,14 +213,11 @@ class DiSketchSystem:
             raise ValueError(f"unknown failure policy {failures!r}")
         keys = np.asarray(keys, dtype=np.uint32)
         out = np.zeros(len(keys))
-        by_path: Dict[Tuple[int, ...], List[int]] = {}
-        for i, p in enumerate(paths):
-            by_path.setdefault(tuple(p), []).append(i)
+        by_path = query.path_groups(paths)
         device_ok = (merge == "fragment" and self.fleet is not None
                      and self.fleet.has_device_window(epochs))
         level = 0 if self.kind == "um" else None
         for path, idxs in by_path.items():
-            idxs = np.asarray(idxs)
             if device_ok:
                 out[idxs] = self.fleet.window_query(
                     epochs, keys[idxs], path=path, level=0,
@@ -229,9 +235,61 @@ class DiSketchSystem:
                 merge=merge) * scale
         return out
 
-    def query_entropy(self, *args, **kwargs) -> float:
-        raise NotImplementedError(
-            "UnivMon entropy (the all-levels query plane) is not ported yet")
+    def query_entropy(self, keys: np.ndarray,
+                      paths: Sequence[Tuple[int, ...]],
+                      epochs: Sequence[int], total: float,
+                      n_levels: int = 16, level_seed: int = 7777,
+                      k_heavy: int = 1024,
+                      merge: str = "subepoch",
+                      failures: str = "mask") -> float:
+        """Network-wide empirical entropy (bits) from the UnivMon level
+        stack, over the candidate ``keys`` with their paths.
+
+        With ``merge="fragment"`` on the fleet backend, where every
+        queried epoch's window is still on the device and ``n_levels`` /
+        ``level_seed`` are the fleet's, each path group's all-levels
+        estimates come from one batched gather/merge
+        (``FleetEpochRunner.um_level_window_query``) and the top-down
+        G-sum runs on the device (``um_gsum_device``): only the per-level
+        estimates and one scalar cross to the host.  Everything else (the
+        default subepoch merge, the loop backend, host windows) goes
+        through the record plane (``query.um_entropy_window``).
+        ``failures`` follows ``query_flows``.
+        """
+        if self.kind != "um":
+            raise ValueError(f"query_entropy needs a UnivMon system, this "
+                             f"one is {self.kind!r}")
+        if failures not in ("oblivious", "mask", "recover"):
+            raise ValueError(f"unknown failure policy {failures!r}")
+        by_path = query.path_groups(paths)
+        keys = np.asarray(keys, dtype=np.uint32)
+        device_ok = (merge == "fragment" and self.fleet is not None
+                     and self.fleet.has_device_window(epochs)
+                     and n_levels == self.fleet.n_levels
+                     and level_seed == self.fleet.level_seed)
+        if device_ok:
+            from ..kernels.sketch_query import um_gsum_device
+
+            ests, lvls = [], []
+            for path, idxs in by_path.items():
+                ks = keys[idxs]
+                ests.append(self.fleet.um_level_window_query(
+                    epochs, ks, path=path, failures=failures))
+                lvls.append(H.level_of(ks, level_seed, n_levels))
+            if not ests:
+                return 0.0 if total <= 0 else float(np.log2(total))
+            s = um_gsum_device(np.concatenate(ests, axis=1),
+                               np.concatenate(lvls), _g_entropy,
+                               k_heavy=k_heavy, device=self.fleet.device)
+            if total <= 0:
+                return 0.0
+            return float(np.log2(total) - s / total)
+        recs, keysets = [], []
+        for path, idxs in by_path.items():
+            recs.append(self._records_for(path, epochs))
+            keysets.append(keys[idxs])
+        return query.um_entropy_window(recs, keysets, n_levels, level_seed,
+                                       total, k_heavy=k_heavy, merge=merge)
 
 
 def calibrate_rho_target(switch_memories: Dict[int, int], kind: str,
@@ -259,3 +317,74 @@ class DiscoSystem(DiSketchSystem):
 
     name = "disco"
     subepoching = False
+
+
+class AggregatedSystem:
+    """Traditional deployment: a full sketch on each core switch (§6),
+    its int64 counters on ``device`` (default ``cuda``)."""
+
+    name = "aggregated"
+
+    def __init__(self, core_memories: Dict[int, int], kind: str,
+                 depth: int = 4, counter_bytes: int = 4, n_levels: int = 16,
+                 seed: int = 0, device=None):
+        self.kind = kind
+        self.depth = depth
+        self.n_levels = n_levels
+        self.device = resolve_device(device)
+        self.specs: Dict[int, object] = {}
+        self.counters: Dict[int, Dict[int, torch.Tensor]] = {}  # epoch -> sw
+        for sw, mem in core_memories.items():
+            w = max(mem // (counter_bytes * depth), 4)
+            if kind == "um":
+                w = max(w // n_levels, 4)
+                self.specs[sw] = sketches.UnivMonSpec(depth, w, n_levels,
+                                                      seed=seed + sw)
+            else:
+                self.specs[sw] = sketches.SketchSpec(kind, depth, w,
+                                                     seed=seed + sw)
+
+    def run_epoch(self, epoch: int, streams: Dict[int, SwitchStream],
+                  events: Optional[Sequence] = None) -> None:
+        if events:
+            raise ValueError(
+                "AggregatedSystem models no churn: a monolithic core sketch "
+                "has no reclaimable per-switch fragments; failure schedules "
+                "apply to disaggregated systems only")
+        recs = {}
+        for sw, spec in self.specs.items():
+            st = streams.get(sw)
+            if self.kind == "um":
+                c = sketches.um_make_counters(spec, self.device)
+                if st is not None and len(st.keys):
+                    c = sketches.um_update(spec, c, st.keys, st.values)
+            else:
+                c = sketches.make_counters(spec, self.device)
+                if st is not None and len(st.keys):
+                    c = sketches.update(spec, c, st.keys, st.values)
+            recs[sw] = c
+        self.counters[epoch] = recs
+
+    def query_flows(self, keys: np.ndarray, core_switch: Sequence[int],
+                    epochs: Sequence[int]) -> np.ndarray:
+        """Query each flow at the (single) core switch on its path; a
+        window over an unprocessed epoch raises ``KeyError``."""
+        keys = np.asarray(keys, dtype=np.uint32)
+        missing = [e for e in epochs if e not in self.counters]
+        if missing:
+            raise KeyError(f"epochs {missing} have no counters "
+                           "(not processed); run them before querying")
+        out = np.zeros(len(keys))
+        by_sw: Dict[int, List[int]] = {}
+        for i, sw in enumerate(core_switch):
+            by_sw.setdefault(int(sw), []).append(i)
+        for sw, idxs in by_sw.items():
+            idxs = np.asarray(idxs)
+            spec = self.specs[sw]
+            for e in epochs:
+                c = self.counters[e][sw]
+                if self.kind == "um":
+                    out[idxs] += sketches.um_query_freq(spec, c, keys[idxs])
+                else:
+                    out[idxs] += sketches.query(spec, c, keys[idxs])
+        return out

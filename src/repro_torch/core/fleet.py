@@ -16,8 +16,8 @@ overflow peak and the §4.2 PEBs are computed there.
   lives on the device for the one epoch and is freed.
 * ``run_window`` keeps the window's ``(E, R_g, n_g, w_g)`` row groups
   resident: they answer point and window queries on the device
-  (``kernels.sketch_query``) until the record plane asks for a host copy,
-  once per window (``WindowRecords``).
+  (``kernels.sketch_query``) until the record plane asks for a host copy:
+  once per window, one int64 array per row group (``WindowRecords``).
 
 UnivMon levels are virtual fragment rows of the parameter table, and the
 per-key level id and §4.4 single-hop flag ride the high bits of the
@@ -293,7 +293,7 @@ def dispatch_ragged_grouped(params: np.ndarray,
 
 
 class _WindowBuffer:
-    """Device-resident counters of one epoch window, held as row groups.
+    """Counters of one epoch window, held as row groups.
 
     ``device()`` returns the groups of ``dispatch_ragged_grouped`` as they
     came: ``(rows, counters)`` with ``counters`` a ``(E, R_g, n_g, w_g)``
@@ -302,16 +302,18 @@ class _WindowBuffer:
     ``E * R * n_sub_max * width_max`` counters, and the §4.2 control
     spreads ``n`` far: at the §6.1 setting with window 8 one 3728-wide
     fragment reaches n = 256 beside 123974-wide ones, 20 GB padded
-    against ~0.1 GB in groups.  The logical shape stays
-    ``(E, R, n_sub_max, width_max)``: the host copy is that dense int64
-    array, made once, on the first ``host()`` call, which releases the
-    device groups.
+    against ~0.1 GB in groups.
+
+    The first ``host()`` call copies the groups to the host, group by
+    group, each as one int64 ``(E, R_g, n_g, w_g)`` array, and releases
+    the device groups; the padded ``(E, R, n_sub_max, width_max)`` array
+    is built only when ``dense_host()`` is asked for it.
     """
 
     def __init__(self, groups: StackGroups, shape: Tuple[int, ...]):
         self._groups: Optional[StackGroups] = groups
         self._shape = shape
-        self._host: Optional[np.ndarray] = None
+        self._host: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
 
     @property
     def resident(self) -> bool:
@@ -330,17 +332,31 @@ class _WindowBuffer:
             out[:, rows, :n, :w] = counters.cpu().numpy()
         return out
 
-    def host(self) -> np.ndarray:
+    def host(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """The window's row groups on the host: ``(rows, counters)`` with
+        ``counters`` an int64 ``(E, R_g, n_g, w_g)`` array, copied once."""
         if self._host is None:
-            self._host = self.dense_host().astype(np.int64)
+            self._host = [(rows, c.to(torch.int64).cpu().numpy())
+                          for rows, c in self._groups]
             self._groups = None
         return self._host
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes of the host copy (0 while the window is resident)."""
+        return sum(c.nbytes for _, c in self._host or ())
+
+    def host_epoch(self, e_idx: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """One epoch's row groups on the host: ``(rows, (R_g, n_g, w_g)
+        view)`` pairs."""
+        return [(rows, c[e_idx]) for rows, c in self.host()]
 
 
 class WindowRecords(Mapping):
     """Lazy ``{switch: EpochRecords}`` view over one epoch of a window:
-    touching a record makes the window's single host copy (shared through
-    ``_WindowBuffer``) and builds counters as views of it."""
+    touching a record makes the window's host copy (shared through
+    ``_WindowBuffer``, one array per row group) and builds counters as
+    views of the fragment's own group."""
 
     def __init__(self, buf: _WindowBuffer, e_idx: int, epoch: int,
                  fragments: Dict[int, FragmentConfig],
@@ -357,15 +373,29 @@ class WindowRecords(Mapping):
 
     def _materialize(self) -> Dict[int, EpochRecords]:
         if self._recs is None:
-            stack = self._buf.host()[self._e]
+            # row -> (its group, position in the group)
+            groups = self._buf.host_epoch(self._e)
+            blocks = [block for _, block in groups]
+            where = {}
+            for g, (rows, _) in enumerate(groups):
+                where.update((int(r), (g, j)) for j, r in enumerate(rows))
             L = self._levels
             self._recs = {}
             for i, sw in enumerate(self._order):
                 cfg = self._fragments[sw]
                 n = int(self._n[i])
-                counters = (stack[i * L:(i + 1) * L, :n, :cfg.width]
-                            if cfg.kind == "um"
-                            else stack[i, :n, :cfg.width])
+                # A fragment's L level rows share its n and width, so they
+                # sit in one group: a view where the group lists them
+                # together in level order, else a copy of those rows.
+                locs = [where[i * L + l] for l in range(L)]
+                g, j = locs[0]
+                if locs == [(g, j + l) for l in range(L)]:
+                    counters = blocks[g][j:j + L, :n, :cfg.width]
+                else:
+                    counters = np.stack([blocks[g][j, :n, :cfg.width]
+                                         for g, j in locs])
+                if cfg.kind != "um":
+                    counters = counters[0]
                 self._recs[sw] = EpochRecords(
                     cfg.frag_id, self._epoch, n, counters, cfg.kind,
                     cfg.mitigation, cfg.base_seed)
@@ -735,6 +765,12 @@ class FleetEpochRunner:
             device_groups.append((groups, es))
         return device_groups, host_epochs
 
+    def _host_groups(self, epoch: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """One retained epoch's counters on the host, as its window's row
+        groups (the window's host copy is made on first use)."""
+        buf, e_idx = self._window_bufs[epoch]
+        return buf.host_epoch(e_idx)
+
     def _liveness_sels(self, epochs: Sequence[int],
                        failures: str) -> List[int]:
         """Churn-policy front end of the query entry points.  No churn is
@@ -772,9 +808,51 @@ class FleetEpochRunner:
                 frag_sel=sel, single_hop=single_hop)
         if host_epochs:
             out += Q.fleet_query_window(
-                [self._window_bufs[e][0].host()[self._window_bufs[e][1]]
-                 for e in host_epochs],
+                [self._host_groups(e) for e in host_epochs],
                 [self._params_log[e] for e in host_epochs],
                 None, keys, self.kind, frag_sel=sel,
                 single_hop=single_hop)
+        return out
+
+    def um_level_window_query(self, epochs: Sequence[int], keys: np.ndarray,
+                              path: Optional[Sequence[int]] = None,
+                              failures: str = "mask") -> np.ndarray:
+        """All ``n_levels`` UnivMon Count-Sketch window estimates for a key
+        batch: the per-level inputs of the §6.2 G-sum / entropy
+        estimators, as ``(n_levels, K)`` float64 ``merge="fragment"``
+        window estimates (level ``l``'s row means something only for keys
+        with ``level_of(key) >= l``; the G-sum masks the rest).
+
+        Resident window epochs are answered by one batched gather/merge
+        over the window's row groups (``kernels.sketch_query
+        .um_window_query_device``); epochs whose window the record plane
+        has copied to the host go through ``query.fleet_query_window``
+        level by level on its host groups.  ``failures`` is validated as in ``window_query``; no churn
+        is ported, so every fragment is live.
+        """
+        from ..kernels.sketch_query import um_window_query_device
+        from . import query as Q
+
+        if self.kind != "um":
+            raise ValueError("um_level_window_query needs a UnivMon fleet, "
+                             f"this one is {self.kind!r}")
+        keys = np.asarray(keys, np.uint32)
+        frag_sel = None
+        if path is not None:
+            on_path = set(path)
+            frag_sel = np.array([sw in on_path for sw in self.frag_order])
+        epochs = self._liveness_sels(epochs, failures)
+        device_groups, host_epochs = self._route_epochs(epochs)
+        out = np.zeros((self.n_levels, len(keys)))
+        for groups, es in device_groups:
+            out += um_window_query_device(
+                groups, [self._params_log[e] for e in es], keys,
+                self.n_levels, frag_sel=frag_sel)
+        if host_epochs:
+            stacks = [self._host_groups(e) for e in host_epochs]
+            params = [self._params_log[e] for e in host_epochs]
+            for level in range(self.n_levels):
+                out[level] += Q.fleet_query_window(
+                    stacks, params, None, keys, "um",
+                    frag_sel=self._row_sel(path, level))
         return out

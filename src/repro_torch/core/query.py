@@ -14,18 +14,23 @@ controller runs on the records the switches export.  Per epoch:
   summed into the epoch estimate.
 It is host numpy, vectorized over the queried keys, as in the reference.
 
-``fleet_query_window`` is the numpy path for windows whose stack the
-record plane has already copied to the host; ``fleet_query_window_device``
-runs the same §4.3 fragment merge where a resident stack lives.  Both are
-the fleet twins of ``query_window(merge="fragment")``: each on-path row's
-record is scaled to the epoch (x n, §1), merged across rows (min for
-Count-Min, median for Count Sketch / UnivMon levels), and summed over the
-window (O_Q = Sum(O)).
+``fleet_query_window`` is the numpy path for windows whose counters the
+record plane has already copied to the host (as row groups);
+``fleet_query_window_device`` runs the same §4.3 fragment merge where a
+resident window lives.  Both are the fleet twins of
+``query_window(merge="fragment")``: each on-path row's record is scaled
+to the epoch (x n, §1), merged across rows (min for Count-Min, median for
+Count Sketch / UnivMon levels), and summed over the window (O_Q =
+Sum(O)).
+
+The UnivMon G-sum and entropy (§6.2: ``um_gsum_combine``,
+``um_gsum_window``, ``um_entropy_window``) combine per-level estimates
+from either plane with the top-down Y-recursion.
 """
 from __future__ import annotations
 
 import warnings
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -142,6 +147,17 @@ def _query_epoch_fragment_merge(records, keys, kind, single_hop, level):
     return np.median(ests, axis=0)
 
 
+def path_groups(paths: Sequence[Sequence[int]]) -> Dict[Tuple[int, ...],
+                                                          np.ndarray]:
+    """The indices of ``paths`` grouped by path, in the order of each
+    path's first appearance: the groups ``query_flows`` and
+    ``query_entropy`` query, in the order they meet them."""
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for i, p in enumerate(paths):
+        groups.setdefault(tuple(p), []).append(i)
+    return {p: np.asarray(i) for p, i in groups.items()}
+
+
 def window_observability(records_by_epoch: Sequence[Sequence],
                          ) -> Tuple[int, float]:
     """``(observable_epochs, scale)`` of a record-plane query window: how
@@ -174,50 +190,58 @@ def query_window(records_by_epoch: Sequence[Sequence[EpochRecords]],
     return out
 
 
-def fleet_query_epoch(stacked: np.ndarray, col_seeds: np.ndarray,
+def fleet_query_epoch(stacked, col_seeds: np.ndarray,
                       sign_seeds: np.ndarray, sub_seeds: np.ndarray,
                       ns: np.ndarray, widths: np.ndarray,
                       keys: np.ndarray, kind: str,
                       frag_sel: Optional[np.ndarray] = None,
                       mit: Optional[np.ndarray] = None,
                       single_hop: bool = False) -> np.ndarray:
-    """Batched epoch point query over one epoch's host
-    ``(n_rows, n_sub_max, width_max)`` counters, in float64.  ``frag_sel``
-    keeps the on-path rows (§4.3 Step 1); ``single_hop`` averages the §4.4
+    """Batched epoch point query over one epoch's host counters, in
+    float64.  ``stacked`` is a dense ``(n_rows, n_sub_max, width_max)``
+    array, or the epoch's row groups: ``(rows, (R_g, n_g, w_g) array)``
+    pairs that cover the rows.  The per-row arrays (seeds, ``ns``,
+    ``widths``, ``mit``) are indexed by row.  ``frag_sel`` keeps the
+    on-path rows (§4.3 Step 1); ``single_hop`` averages the §4.4
     second-subepoch record on rows flagged in ``mit``."""
     keys = np.asarray(keys, dtype=np.uint32)
+    groups = ([(np.arange(stacked.shape[0]), stacked)]
+              if isinstance(stacked, np.ndarray) else list(stacked))
+    n_rows = sum(len(rows) for rows, _ in groups)
+    sel = np.ones(n_rows, bool)
     if frag_sel is not None:
-        frag_sel = np.asarray(frag_sel, bool)
-        if not frag_sel.any():
+        sel = np.asarray(frag_sel, bool)
+        if not sel.any():
             raise ValueError(
                 "fleet_query_epoch: frag_sel selects no rows — an "
                 "all-masked merge has no survivor")
-        stacked = stacked[frag_sel]
-        col_seeds = np.asarray(col_seeds)[frag_sel]
-        sign_seeds = np.asarray(sign_seeds)[frag_sel]
-        sub_seeds = np.asarray(sub_seeds)[frag_sel]
-        ns = np.asarray(ns)[frag_sel]
-        widths = np.asarray(widths)[frag_sel]
-        if mit is not None:
-            mit = np.asarray(mit, bool)[frag_sel]
-    if len(keys) == 0 or stacked.shape[0] == 0:
+    if len(keys) == 0 or n_rows == 0:
         return np.zeros(len(keys))
-    ns = np.asarray(ns, np.int64)[:, None]            # (F, 1)
-    widths = np.asarray(widths, np.int64)[:, None]
+    ns, widths = np.asarray(ns, np.int64), np.asarray(widths, np.int64)
+    col_seeds, sign_seeds, sub_seeds = (
+        np.asarray(col_seeds), np.asarray(sign_seeds), np.asarray(sub_seeds))
     k2 = keys[None, :]                                # (1, K)
-    col = H.hash_mod(k2, np.asarray(col_seeds)[:, None], widths)
-    sub = H.hash_pow2(k2, np.asarray(sub_seeds)[:, None], ns)
-    rows = np.arange(stacked.shape[0])[:, None]
-    raw = stacked[rows, sub, col].astype(np.float64)
-    if single_hop and mit is not None and mit.any():
-        sub2 = (sub + ns // 2) & (ns - 1)
-        raw2 = stacked[rows, sub2, col].astype(np.float64)
-        use = np.asarray(mit, bool)[:, None] & (ns >= 2)
-        raw = np.where(use, 0.5 * (raw + raw2), raw)
-    if kind in ("cs", "um"):
-        raw = raw * H.hash_sign(k2, np.asarray(sign_seeds)[:, None]
-                                ).astype(np.float64)
-    raw = raw * ns.astype(np.float64)
+    raws = []
+    for rows, counters in groups:
+        keep = np.flatnonzero(sel[np.asarray(rows)])  # positions in the group
+        if not len(keep):
+            continue
+        r = np.asarray(rows)[keep]
+        ns_r = ns[r][:, None]                         # (F, 1)
+        col = H.hash_mod(k2, col_seeds[r][:, None], widths[r][:, None])
+        sub = H.hash_pow2(k2, sub_seeds[r][:, None], ns_r)
+        pos = keep[:, None]
+        raw = counters[pos, sub, col].astype(np.float64)
+        if single_hop and mit is not None and np.asarray(mit)[r].any():
+            sub2 = (sub + ns_r // 2) & (ns_r - 1)
+            raw2 = counters[pos, sub2, col].astype(np.float64)
+            use = np.asarray(mit, bool)[r][:, None] & (ns_r >= 2)
+            raw = np.where(use, 0.5 * (raw + raw2), raw)
+        if kind in ("cs", "um"):
+            raw = raw * H.hash_sign(k2, sign_seeds[r][:, None]
+                                    ).astype(np.float64)
+        raws.append(raw * ns_r.astype(np.float64))
+    raw = np.concatenate(raws)
     if kind == "cms":
         return raw.min(axis=0)
     return np.median(raw, axis=0)
@@ -242,9 +266,10 @@ def fleet_query_window(stacked_by_epoch: Sequence[np.ndarray],
                        widths: Optional[np.ndarray], keys: np.ndarray,
                        kind: str, frag_sel=None,
                        single_hop: bool = False) -> np.ndarray:
-    """Window point query over host fleet stacks: the sum of per-epoch
-    ``fleet_query_epoch`` calls, each reading its seeds (and, with
-    ``widths=None``, its hash moduli) from that epoch's table."""
+    """Window point query over host fleet counters: the sum of per-epoch
+    ``fleet_query_epoch`` calls, each over that epoch's dense stack or row
+    groups, reading its seeds (and, with ``widths=None``, its hash moduli)
+    from that epoch's table."""
     keys = np.asarray(keys, dtype=np.uint32)
     out = np.zeros(len(keys))
     sels = _per_epoch_sels(frag_sel, len(params_by_epoch))
@@ -273,3 +298,74 @@ def fleet_query_window_device(stack, params_by_epoch, keys: np.ndarray,
     return fleet_window_query_device(stack, params_by_epoch, keys, kind,
                                      frag_sel=frag_sel,
                                      single_hop=single_hop)
+
+
+# ---------------------------------------------------------------------------
+# UnivMon network-wide G-sum / entropy over composite sketches (§6.2)
+# ---------------------------------------------------------------------------
+
+
+def um_gsum_combine(ests: np.ndarray, lvl: np.ndarray, g,
+                    k_heavy: int = 1024) -> float:
+    """The UnivMon top-down Y-recursion over precomputed per-level window
+    estimates (``ests``: (n_levels, K); ``lvl``: (K,) level membership), in
+    float64 on the host.  ``kernels.sketch_query.um_gsum_device`` is its
+    device twin."""
+    n_levels = ests.shape[0]
+    y = 0.0
+    for l in range(n_levels - 1, -1, -1):
+        sel = lvl >= l
+        if not sel.any():
+            y = 2.0 * y
+            continue
+        est = np.maximum(ests[l, sel], 1.0)
+        order = np.argsort(-est)[:k_heavy]
+        hh_est = est[order]
+        in_next = (lvl[sel][order] >= (l + 1)).astype(np.float64)
+        if l == n_levels - 1:
+            y = float(np.sum(g(hh_est)))
+        else:
+            y = 2.0 * y + float(np.sum((1.0 - 2.0 * in_next) * g(hh_est)))
+    return y
+
+
+def um_gsum_window(records_by_epoch_per_path, keys_per_path, g,
+                   n_levels: int, level_seed: int,
+                   k_heavy: int = 1024, merge: str = "subepoch") -> float:
+    """Recursive UnivMon estimator over disaggregated composite sketches:
+    per-level window frequencies of every path group's candidate keys from
+    its records (``query_window`` at each level, ``merge`` the §4.3
+    subepoch merge or the fragment merge), then ``um_gsum_combine``."""
+    all_lvl, est_per_level = [], []
+    for keys, recs_by_epoch in zip(keys_per_path, records_by_epoch_per_path):
+        keys = np.asarray(keys, dtype=np.uint32)
+        if len(keys) == 0:
+            continue
+        lvl = H.level_of(keys, level_seed, n_levels)
+        ests = np.zeros((n_levels, len(keys)))
+        for l in range(n_levels):
+            m = lvl >= l
+            if not m.any():
+                continue
+            ests[l, m] = query_window(recs_by_epoch, keys[m], "um", level=l,
+                                      merge=merge)
+        all_lvl.append(lvl)
+        est_per_level.append(ests)
+    if not all_lvl:
+        return 0.0
+    return um_gsum_combine(np.concatenate(est_per_level, axis=1),
+                           np.concatenate(all_lvl), g, k_heavy=k_heavy)
+
+
+def um_entropy_window(records_by_epoch_per_path, keys_per_path,
+                      n_levels: int, level_seed: int, total: float,
+                      k_heavy: int = 1024,
+                      merge: str = "subepoch") -> float:
+    """Empirical entropy in bits over the query window:
+    ``log2(total) - G / total`` with ``G`` the G-sum of ``x log2 x``."""
+    s = um_gsum_window(records_by_epoch_per_path, keys_per_path,
+                       lambda x: x * np.log2(np.maximum(x, 1.0)),
+                       n_levels, level_seed, k_heavy=k_heavy, merge=merge)
+    if total <= 0:
+        return 0.0
+    return float(np.log2(total) - s / total)

@@ -7,13 +7,18 @@ One pass, in PyTorch ops on the device that holds the stack:
   1. recompute every row's column/sign/subepoch hashes for the key batch
      (``core.hashing``'s int64 torch twins of the uint32 arithmetic);
   2. gather each (epoch, row)'s raw estimate
-     ``stack[e, r, sub(e,r,k), col(e,r,k)]`` for all keys at once, from
-     the row group that holds the row (a window buffer keeps one
-     ``(E, R_g, n_g, w_g)`` tensor per subepoch count, not one stack
-     padded to the fleet-wide ceiling);
+     ``stack[e, r, sub(e,r,k), col(e,r,k)]`` for all keys at once, for
+     the rows some epoch selects, from the row group that holds the row
+     (a window buffer keeps one ``(E, R_g, n_g, w_g)`` tensor per
+     subepoch count, not one stack padded to the fleet-wide ceiling);
   3. merge across rows per epoch — min for Count-Min, a +inf-masked median
      for Count Sketch (``frag_sel`` keeps the on-path rows, §4.3 Step 1);
   4. sum over the window's epochs (O_Q = Sum(O)).
+
+UnivMon (§6.2): ``um_window_query_device`` runs the same gather over
+every (epoch, fragment, level) row and the median over the fragments of
+each level, returning ``(n_levels, K)`` estimates; ``um_gsum_device`` runs
+the top-down G-sum over them on the device.
 
 The reference's version is XLA, not Pallas, so it needs no hand-written
 kernel.  Only the ``(K,)`` estimates cross back to the host.  Keys are not
@@ -32,24 +37,25 @@ import numpy as np
 import torch
 
 from ...core.hashing import hash_mod_torch, hash_pow2_torch, hash_sign_torch
+from ...device import resolve_device
 from ..sketch_update.fleet import (PARAM_COL_SEED, PARAM_MIT, PARAM_N_SUB,
                                    PARAM_SIGN_SEED, PARAM_SUB_SEED,
                                    PARAM_WIDTH)
 
 
-def _gather_raw(stack: torch.Tensor, col_seeds, sign_seeds, sub_seeds, ns,
-                widths, mit_rows, keys, *, signed: bool,
+def _gather_raw(stack: torch.Tensor, pos, col_seeds, sign_seeds, sub_seeds,
+                ns, widths, mit_rows, keys, *, signed: bool,
                 mitigate: bool) -> torch.Tensor:
-    """(E, R, S, W) stack + (K,) keys -> (E, R, K) raw per-row estimates
-    (signed, §4.4-averaged, x n scaled).  Seeds are (E, R), ``ns``/
-    ``widths``/``mit_rows`` (R,), all int64/bool tensors on the stack's
-    device."""
-    e_count, n_rows = stack.shape[:2]
+    """(E, R_g, S, W) stack + (R,) row positions ``pos`` in it + (K,) keys
+    -> (E, R, K) raw estimates of those rows (signed, §4.4-averaged, x n
+    scaled).  Seeds are (E, R), ``ns``/``widths``/``mit_rows`` (R,), all
+    int64/bool tensors on the stack's device."""
+    e_count = stack.shape[0]
     k = keys[None, None, :]
     col = hash_mod_torch(k, col_seeds[:, :, None], widths[None, :, None])
     sub = hash_pow2_torch(k, sub_seeds[:, :, None], ns[None, :, None])
     e_idx = torch.arange(e_count, device=stack.device)[:, None, None]
-    r_idx = torch.arange(n_rows, device=stack.device)[None, :, None]
+    r_idx = pos[None, :, None]
     raw = stack[e_idx, r_idx, sub, col]
     if mitigate:
         # §4.4: single-hop flows carry a second subepoch record at
@@ -150,23 +156,143 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
             "an all-masked merge has no survivor")
     if len(keys) == 0:
         return np.zeros(0)
-    mit_rows = params[0, :, PARAM_MIT] != 0
     dev = groups[0][1].device
+    raw = _gather_groups(groups, params, ns, widths, keys, sel2.any(axis=0),
+                         signed=kind in ("cs", "um"),
+                         mitigate=bool(single_hop))
+    merged = _masked_merge(raw, _put(frag_sel, dev, torch.bool), kind=kind)
+    # (K,) estimates: the only counter-derived bytes that leave the device
+    return merged.to(torch.float64).sum(dim=0).cpu().numpy()
 
-    def put(a, dtype=torch.int64):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
-    k = put(keys.astype(np.int64))
-    mitigate = bool(single_hop) and bool(mit_rows.any())
+def _put(a, dev, dtype=torch.int64) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+
+def _gather_groups(groups, params: np.ndarray, ns: np.ndarray,
+                   widths: np.ndarray, keys: np.ndarray, need: np.ndarray, *,
+                   signed: bool, mitigate: bool) -> torch.Tensor:
+    """``_gather_raw`` over a window's row groups: the ``(E, R, K)`` f32
+    raw estimates of the rows ``need`` (R,) selects, on the groups'
+    device.  The other rows are left unwritten; the merge masks them.
+    ``mitigate`` asks for the §4.4 average on the rows that mitigate."""
+    e_count, n_rows = params.shape[:2]
+    dev = groups[0][1].device
+    mit_rows = params[0, :, PARAM_MIT] != 0
+    mitigate = mitigate and bool(mit_rows.any())
+    k = _put(keys.astype(np.int64), dev)
     raw = torch.empty((e_count, n_rows, len(keys)), dtype=torch.float32,
                       device=dev)
     for rows, counters in groups:
-        raw[:, put(rows)] = _gather_raw(
-            counters, put(params[:, rows, PARAM_COL_SEED]),
-            put(params[:, rows, PARAM_SIGN_SEED]),
-            put(params[:, rows, PARAM_SUB_SEED]), put(ns[rows]),
-            put(widths[rows]), put(mit_rows[rows], torch.bool), k,
-            signed=kind in ("cs", "um"), mitigate=mitigate)
-    merged = _masked_merge(raw, put(frag_sel, torch.bool), kind=kind)
-    # (K,) estimates: the only counter-derived bytes that leave the device
-    return merged.to(torch.float64).sum(dim=0).cpu().numpy()
+        pos = np.flatnonzero(need[np.asarray(rows)])
+        if not len(pos):
+            continue
+        r = np.asarray(rows)[pos]
+        raw[:, _put(r, dev)] = _gather_raw(
+            counters, _put(pos, dev), _put(params[:, r, PARAM_COL_SEED], dev),
+            _put(params[:, r, PARAM_SIGN_SEED], dev),
+            _put(params[:, r, PARAM_SUB_SEED], dev), _put(ns[r], dev),
+            _put(widths[r], dev), _put(mit_rows[r], dev, torch.bool),
+            k, signed=signed, mitigate=mitigate)
+    return raw
+
+
+def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
+                           keys: np.ndarray, n_levels: int,
+                           frag_sel: Optional[np.ndarray] = None,
+                           ) -> np.ndarray:
+    """All ``n_levels`` UnivMon Count-Sketch window estimates for a key
+    batch in one batched pass (the §6.2 G-sum inputs).
+
+    Args:
+      stack: a resident window with ``n_levels`` virtual rows per
+        fragment, fragment-major — a dense ``(E, F * n_levels, S, W)``
+        tensor or its row groups, as for ``fleet_window_query_device``.
+      params_by_epoch: E host ``(F * n_levels, N_PARAMS)`` tables with the
+        per-level mixed seeds (``core.fleet.build_params``).
+      keys: (K,) uint32 key batch.
+      frag_sel: optional (F,) or (E, F) bool on-path *fragment* mask
+        (the level axis is structural, not a mask); every epoch must keep
+        a fragment.
+
+    One gather covers every (epoch, fragment, level) row; the rows are
+    reshaped to ``(E * L, F, K)``, epoch-major with the level inside, so
+    ``_masked_merge``'s median runs over the fragments of each (epoch,
+    level), and the epochs are summed.  Returns ``(n_levels, K)`` float64
+    ``merge="fragment"`` window estimates; level ``l``'s row means
+    something for keys with ``level_of >= l``.  No §4.4 average: the G-sum
+    queries without single-hop records, as the host ``um_gsum_window``.
+    """
+    keys = np.asarray(keys, dtype=np.uint32)
+    groups = ([(np.arange(stack.shape[1]), stack)]
+              if isinstance(stack, torch.Tensor) else list(stack))
+    params, ns, widths = _prep_window_params(groups, params_by_epoch)
+    e_count, n_rows = params.shape[:2]
+    if n_levels < 1 or n_rows % n_levels:
+        raise ValueError(f"{n_rows} rows are not whole fragments of "
+                         f"{n_levels} levels")
+    n_frags = n_rows // n_levels
+    frag_sel = (np.ones(n_frags, bool) if frag_sel is None
+                else np.asarray(frag_sel, bool))
+    sel2 = np.atleast_2d(frag_sel)
+    if sel2.shape[-1] != n_frags or sel2.shape[0] not in (1, e_count):
+        raise ValueError(f"frag_sel {frag_sel.shape} is not ({n_frags},) "
+                         f"or ({e_count}, {n_frags})")
+    if not sel2.any(axis=1).all():
+        bad = np.flatnonzero(~sel2.any(axis=1))
+        raise ValueError(
+            "um_window_query_device: no on-path fragment selected (epoch "
+            f"offsets {bad.tolist()} of {e_count}) — an all-masked merge "
+            "has no survivor")
+    if len(keys) == 0:
+        return np.zeros((n_levels, 0))
+    raw = _gather_groups(groups, params, ns, widths, keys,
+                         np.repeat(sel2.any(axis=0), n_levels), signed=True,
+                         mitigate=False)
+    raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
+           .reshape(e_count * n_levels, n_frags, -1))
+    dev = raw.device
+    sel = _put(frag_sel, dev, torch.bool)
+    if sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout above
+        sel = sel.repeat_interleave(n_levels, dim=0)
+    merged = _masked_merge(raw, sel, kind="um")            # (E * L, K)
+    # (L, K) estimates: the only counter-derived bytes that leave the device
+    return (merged.reshape(e_count, n_levels, -1).to(torch.float64)
+            .sum(dim=0).cpu().numpy())
+
+
+def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
+                   device=None) -> float:
+    """Device twin of ``core.query.um_gsum_combine``: the top-down UnivMon
+    Y-recursion over ``(n_levels, K)`` per-level estimates, in f32 torch
+    ops on ``device`` (default ``cuda``; a tensor's own device).
+
+    At each level the unselected keys (``lvl < l``) become ``-inf`` and
+    the ``k_heavy`` largest estimates are taken.  ``lax.top_k`` in the
+    reference breaks ties by the lower index; ``torch.topk`` promises no
+    order, so the selection is a stable sort of ``-est``.  ``g`` is a
+    torch callable (``core.disketch._g_entropy``).  Accumulates in f32 as
+    the reference's device G-sum does: expect ~1e-5 relative agreement
+    with the float64 host combine, and the same keys selected."""
+    if isinstance(ests, torch.Tensor):
+        est_all, dev = ests.to(torch.float32), ests.device
+    else:
+        dev = resolve_device(device)
+        est_all = torch.as_tensor(np.asarray(ests, np.float32), device=dev)
+    lv = torch.as_tensor(np.asarray(lvl, np.int64), device=dev)
+    n_levels, n_keys = est_all.shape
+    k = min(int(k_heavy), n_keys)
+    neg_inf = float("-inf")
+    y = torch.zeros((), dtype=torch.float32, device=dev)
+    for l in range(n_levels - 1, -1, -1):
+        est = torch.where(lv >= l, torch.clamp_min(est_all[l], 1.0), neg_inf)
+        idx = torch.sort(-est, stable=True).indices[:k]
+        vals = est[idx]
+        valid = vals > neg_inf
+        gv = torch.where(valid, g(torch.where(valid, vals, 1.0)), 0.0)
+        if l == n_levels - 1:
+            y = gv.sum()
+        else:
+            in_next = ((lv[idx] >= l + 1) & valid).to(torch.float32)
+            y = 2.0 * y + ((1.0 - 2.0 * in_next) * gv).sum()
+    return float(y)

@@ -88,3 +88,12 @@ def path_tuples(path_mat: np.ndarray) -> List[Tuple[int, ...]]:
 
 def path_lengths(path_mat: np.ndarray) -> np.ndarray:
     return (path_mat >= 0).sum(axis=1)
+
+
+def core_on_path(path_mat: np.ndarray, core_ids: Tuple[int, ...]) -> np.ndarray:
+    """The core switch on each path (or -1): used by the aggregated
+    baseline."""
+    is_core = np.isin(path_mat, np.asarray(core_ids))
+    any_core = is_core.any(axis=1)
+    first = np.where(is_core, path_mat, -1).max(axis=1)
+    return np.where(any_core, first, -1)

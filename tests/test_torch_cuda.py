@@ -1,6 +1,7 @@
 """On-card tests of the port's CUDA kernels (B1 ragged fleet update, B2
 single-fragment update, B3 dense fleet update) against their plain
-PyTorch versions.  They need an NVIDIA GPU and ``nvcc``; elsewhere they skip with
+PyTorch versions, and of the torch ops that run on the card (the UnivMon
+query plane, the aggregated sketches) against the CPU.  They need an NVIDIA GPU and ``nvcc``; elsewhere they skip with
 the reason.  Run them on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.
 
@@ -269,3 +270,61 @@ def test_single_kernel_on_stress_rows_on_card(cuda_device, case):
     if case == "fractional":
         assert (plain != torch.round(plain)).any()
     assert torch.equal(got, plain)
+
+
+def test_univmon_query_plane_on_card(cuda_device):
+    """The UnivMon all-levels window query and the G-sum (torch ops, no
+    hand-written kernel) give on the card what they give on the CPU: the
+    (L, K) estimates to f32 rounding of the median midpoint, and, on
+    integer estimates with ties at the k_heavy cutoff and ``g(x) = x``,
+    the same G-sum exactly (the stable sort keeps the lower index on the
+    card too)."""
+    from repro_torch.kernels.sketch_query import (um_gsum_device,
+                                                  um_window_query_device)
+
+    rng = np.random.default_rng(3)
+    e_count, n_frags, n_levels = 2, 5, 4
+    n_rows = n_frags * n_levels
+    params = np.zeros((n_rows, FK.N_PARAMS), np.int32)
+    params[:, :3] = rng.integers(0, 2 ** 31, (n_rows, 3))
+    params[:, FK.PARAM_WIDTH] = np.repeat([300, 1000, 70001, 64, 5], n_levels)
+    params[:, FK.PARAM_N_SUB] = np.repeat([1, 4, 1, 2, 1], n_levels)
+    params[:, FK.PARAM_LEVEL] = np.tile(np.arange(n_levels), n_frags)
+    stack = torch.from_numpy(rng.integers(-50, 50, (
+        e_count, n_rows, 4, 70001)).astype(np.float32))
+    keys = rng.integers(0, 2 ** 32, 5000, dtype=np.uint64).astype(np.uint32)
+    sel = np.array([True, True, False, True, True])
+    want = um_window_query_device(stack, [params] * e_count, keys, n_levels,
+                                  frag_sel=sel)
+    got = um_window_query_device(stack.to(cuda_device), [params] * e_count,
+                                 keys, n_levels, frag_sel=sel)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    lvl = rng.integers(0, n_levels, 4096)
+    ests = rng.choice([7.0, 7.0, 40.0, 300.0], (n_levels, 4096))
+    assert um_gsum_device(ests, lvl, lambda x: x, k_heavy=100,
+                          device=cuda_device) == \
+        um_gsum_device(ests, lvl, lambda x: x, k_heavy=100, device="cpu")
+
+
+def test_aggregated_sketches_on_card(cuda_device):
+    """``core/sketches.py`` on the card: ``index_add_`` of int64 adds
+    (exact, in any order) gives the CPU's counters bit for bit, and the
+    float64 queries the same estimates."""
+    from repro_torch.core import sketches as S
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 2 ** 32, 200_000, dtype=np.uint64).astype(
+        np.uint32)[rng.zipf(1.2, 200_000) % 200_000]
+    values = rng.integers(1, 4, len(keys))
+    for kind in ("cs", "cms"):
+        spec = S.SketchSpec(kind, 4, 70001, seed=7)
+        got = S.update(spec, S.make_counters(spec, cuda_device), keys, values)
+        want = S.update(spec, S.make_counters(spec, "cpu"), keys, values)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+        np.testing.assert_array_equal(S.query(spec, got, keys[:5000]),
+                                      S.query(spec, want, keys[:5000]))
+    spec = S.UnivMonSpec(4, 512, n_levels=16)
+    got = S.um_update(spec, S.um_make_counters(spec, cuda_device), keys,
+                      values)
+    want = S.um_update(spec, S.um_make_counters(spec, "cpu"), keys, values)
+    assert torch.equal(got.cpu(), want)

@@ -272,8 +272,7 @@ def test_fleet_window_path_matches_reference(scenario, reference_engine,
 
 def test_unported_options_raise():
     """What the port does not have yet raises instead of running another
-    path: device meshes, XOR parity groups, churn events and the UnivMon
-    all-levels queries."""
+    path: device meshes, XOR parity groups and churn events."""
     mems = {0: 4096, 1: 8192}
     for backend in ("fleet", "loop"):
         with pytest.raises(NotImplementedError, match="mesh"):
@@ -286,8 +285,6 @@ def test_unported_options_raise():
         system.run_epoch(0, empty, events=[object()])
     with pytest.raises(NotImplementedError, match="churn"):
         system.run_window(0, [empty], events_by_epoch=[[object()]])
-    with pytest.raises(NotImplementedError, match="entropy"):
-        system.query_entropy()
     frags = {0: TCfg(0, "cs", 4096)}
     for kw in (dict(mesh=object()), dict(parity_groups=[[0]])):
         with pytest.raises(NotImplementedError):
