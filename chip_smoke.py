@@ -27,7 +27,14 @@ full-scale setting:
   gather/merge and the G-sum); the per-epoch replay (B1), the B2 loop over
   one epoch's level rows, and ``query_entropy`` with both merges for
   DiSketch and the subepoch merge for DISCO;
-* ``AggregatedSystem`` for cs, cms and um on the core switches.
+* ``AggregatedSystem`` for cs, cms and um on the core switches;
+* churn and failure recovery: ``Replayer.run(system, window=8,
+  failures=...)`` with a quarter of the switches dying at window offset 1
+  and returning a window later, beside seeded resource pressure, XOR
+  parity groups of 5, dead segments masked to value 0 in B1 and the
+  queries under "oblivious", "mask" and "recover" on the device; and the
+  per-epoch path under the same schedule (ragged B1, dense B3,
+  subepoch-merge queries).
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
@@ -41,6 +48,7 @@ missing.  The last line of its output is the JSON result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -106,6 +114,36 @@ ENTROPY_PIN = {
     "window 8 fragment": 11.471188325072735,
     "window 8 fragment k_heavy 1024": 11.503352649492847,
 }
+# Churn (scripts/reference_pins.py churn): churn_schedule() below, parity
+# groups of PARITY_GROUP switches in fleet order.  Window 8 (cs, cms): the
+# reference's parts emulating its fleet window path (process_epoch at the
+# frozen ns and widths, dead cells empty, lost cells zeroed after their
+# PEBs, its apply_event for the control, query_window(merge="fragment")),
+# RMSE of all 5-hop flows over the 32 epochs under each policy.  Per-epoch
+# cs: the reference's loop backend under the same schedule, subepoch-merge
+# RMSE of the 5-hop flows over CHURN_EPOCHS (their packets there).  The n
+# trajectories are pinned as n_log_digest()s.
+CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
+CHURN_PIN = {
+    ("cs", "oblivious"): 37.43235679684199,
+    ("cs", "mask"): 11.66974402178167,
+    ("cs", "recover"): 10.94064944676658,
+    ("cms", "oblivious"): 103.1156095381902,
+    ("cms", "mask"): 16.18123888670383,
+    ("cms", "recover"): 16.180349005444622,
+    ("cs", "epoch mask"): 12.36910451608781,
+    ("cs", "epoch oblivious"): 12.36910451608781,
+    ("cs", "records mask"): 10.976916944787426,
+    ("cs", "records oblivious"): 22.212454599080143,
+}
+CHURN_N_LOG_PIN = {"window cs": "c14bdbb7a67aabb1",
+                   "window cms": "862325a8be1631df",
+                   "epoch cs": "ec9b915777a938a0"}
+# the victims (dead in epochs 17 to 24), the cells lost at the death and
+# those parity can rebuild (one victim alone in its group)
+CHURN_DEAD = (17, 25, [1, 3, 4, 12, 19])
+CHURN_LOST = {16: [1, 3, 4, 12, 19]}
+CHURN_RECOVERABLE = {16: [12, 19]}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -577,19 +615,24 @@ def kernel_phase_dense(dev) -> float:
     return worst
 
 
-def _window_groups(fleet, rep, e0, n_epochs=WINDOW):
+def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
     """The grouped launches of the ``n_epochs`` epochs from ``e0`` (a
     window, or one epoch of the per-epoch path) exactly as the fleet
-    runner makes them: ``[(args, kw)]`` per distinct n_sub."""
-    from repro_torch.core.fleet import fold_packet_flags, pack_csr
+    runner makes them: ``[(args, kw)]`` per distinct n_sub, the segments
+    of the switches dead in an epoch (``dead_at``: {epoch: switches})
+    masked to value 0."""
+    from repro_torch.core.fleet import (fold_packet_flags,
+                                        mask_fragment_values, pack_csr)
     from repro_torch.kernels.sketch_update import fleet as FK
 
     es = [e for e in range(e0, e0 + n_epochs) if e in fleet._params_log]
     params = np.concatenate([fleet._params_log[e] for e in es])
-    packets = [fold_packet_flags(rep.epoch_packet(e, fleet.frag_order),
-                                 fleet.log2_te, n_levels=fleet.n_levels,
-                                 level_seed=fleet.level_seed,
-                                 mitigation=fleet.mitigation) for e in es]
+    pos = {sw: i for i, sw in enumerate(fleet.frag_order)}
+    packets = [fold_packet_flags(mask_fragment_values(
+        rep.epoch_packet(e, fleet.frag_order),
+        sorted(pos[sw] for sw in (dead_at or {}).get(e, ()))),
+        fleet.log2_te, n_levels=fleet.n_levels, level_seed=fleet.level_seed,
+        mitigation=fleet.mitigation) for e in es]
     n_frags, L = len(fleet.frag_order), fleet.n_levels
     nsub_f = params[:n_frags * L:L, FK.PARAM_N_SUB]
     width_f = params[:n_frags * L:L, FK.PARAM_WIDTH]
@@ -835,7 +878,7 @@ def _epoch_ns(system, e):
     return system.n_log[e - 1] if e else {sw: 1 for sw in system.ns}
 
 
-def _replay(rep, system):
+def _replay(rep, system, window=1, failures=None):
     """``Replayer.run(system)`` with the launch counters reset just
     before and read just after; returns (counts, host s, device ms)."""
     import torch
@@ -846,7 +889,7 @@ def _replay(rep, system):
     reset_counts()
     h0 = time.perf_counter()
     start.record()
-    rep.run(system)                              # <- the per-epoch path
+    rep.run(system, window=window, failures=failures)   # <- the path
     end.record()
     torch.cuda.synchronize()
     return read_counts(), time.perf_counter() - h0, start.elapsed_time(end)
@@ -992,7 +1035,11 @@ def epoch_path(dev, sc):
         est = system.query_flows(keys, paths, epochs)
         q_s = time.perf_counter() - q0
         assert est.shape == keys.shape and np.isfinite(est).all()
+        # the fragment merge on the device (each epoch is a one-epoch
+        # window there), held to the record plane
+        q1 = time.perf_counter()
         frag_dev = system.query_flows(keys, paths, epochs, merge="fragment")
+        q_dev = time.perf_counter() - q1
         assert system.fleet.has_device_window(epochs)
         frag_rec = dense.query_flows(keys, paths, epochs, merge="fragment")
         np.testing.assert_allclose(frag_dev, frag_rec, rtol=1e-6, atol=1e-6)
@@ -1014,8 +1061,8 @@ def epoch_path(dev, sc):
              f"{q_s:.2f} s; DISCO RMSE {rmse(est_o, truth):.4f} in "
              f"{q_o:.2f} s (DISCO replay {host_o:.2f} s, launches "
              f"{counts_o}); fragment merge: RMSE {rmse(frag_dev, truth):.4f}"
-             f" on the device == the record plane (1e-6); all three RMSEs "
-             f"the reference's (pinned)")
+             f" on the device in {q_dev:.2f} s == the record plane (1e-6); "
+             f"all three RMSEs the reference's (pinned)")
         del system, dense, disco, fleet
         torch.cuda.empty_cache()
     profile_replay(mems, rep, window=1)
@@ -1337,6 +1384,366 @@ def aggregated_phase(dev, sc):
              f"flows {q_s:.2f} s, RMSE {err!r} (the reference's, pinned)")
 
 
+def churn_schedule():
+    """A quarter of the 20 switches die at epoch 17 (window offset 1) and
+    return at 25, beside seeded resource pressure: the schedule of
+    ``scripts/reference_pins.py``'s churn section, made anew each call."""
+    from repro_torch.net.simulator import (ComposedSchedule, FailureSchedule,
+                                           ResourcePressure)
+
+    return ComposedSchedule([
+        FailureSchedule.random(20, 0.25, down_epoch=17, up_epoch=25, seed=3),
+        ResourcePressure(20, horizon=N_EPOCHS, seed=5)])
+
+
+def n_log_digest(n_log):
+    """A short digest of an n trajectory (one {switch: n} per epoch), as
+    ``scripts/reference_pins.py`` computes it."""
+    rows = [[[int(sw), int(n)] for sw, n in sorted(d.items())]
+            for d in n_log]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
+
+
+class _Timed:
+    """A callable wrapped to keep each call's seconds (the device
+    synchronized after it) and result."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append((time.perf_counter() - t0, out))
+        return out
+
+
+def _zero_rows(buf, positions, e_idx=0):
+    """The full rows (padding included) of ``positions`` in epoch
+    ``e_idx`` of a resident window, each exactly zero: their count."""
+    import torch
+
+    for i in positions:
+        g, j = buf._where[i]
+        row = buf.device()[g][1][e_idx, j]
+        assert row.is_cuda and torch.equal(row, torch.zeros_like(row)), \
+            f"row {i} of a dead or lost cell is not zero"
+    return len(positions)
+
+
+def _churn_window(dev, sc, kind, groups):
+    """Window 8 under churn for one kind: the replay (B1, dead segments
+    value 0, parity, lost rows zeroed), B1's groups of the churn window
+    against the plain version, a twin of that window without the loss,
+    and the queries under each policy."""
+    import torch
+
+    from repro_torch.core import fleet as F
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+
+    rep, mems = sc["rep"], sc["mems"]
+    keys, truth, paths = sc["keys"], sc["truth"], sc["paths"]
+    epochs = list(range(N_EPOCHS))
+    system = DiSketchSystem(mems, kind, rho_target=RHO[kind],
+                            log2_te=LOG2_TE,
+                            fleet_kwargs={"parity_groups": groups})
+    fleet = system.fleet
+    masking, parity = _Timed(F.mask_fragment_values), \
+        _Timed(fleet._window_parity)
+    F.mask_fragment_values, fleet._window_parity = masking, parity
+    try:
+        counts, host_s, dev_ms = _replay(rep, system, window=WINDOW,
+                                         failures=churn_schedule())
+    finally:
+        F.mask_fragment_values = masking.fn
+        del fleet._window_parity
+    expected = sum(len(np.unique(fleet._params_log[e0][:, FK.PARAM_N_SUB]))
+                   for e0 in range(0, N_EPOCHS, WINDOW))
+    assert counts["fleet_ragged"] == expected > 0, (counts, expected)
+    assert counts["fleet_dense"] == counts["sketch_update"] == 0, counts
+    # the control: n trajectory, dead epochs, lost and recoverable cells
+    _pinned_digest(f"window {kind}", system.n_log)
+    d0, d1, victims = CHURN_DEAD
+    assert system._dead_at == {e: frozenset(victims)
+                               for e in range(d0, d1)}, system._dead_at
+    lost = {e: sorted(fleet.frag_order[i] for i in v)
+            for e, v in fleet._lost.items() if v}
+    assert lost == CHURN_LOST, lost
+    assert fleet.recoverable() == CHURN_RECOVERABLE, fleet.recoverable()
+
+    # B1's groups of the churn window against the plain version on the
+    # same masked packets; the lost rows, which B1 computed, were zeroed
+    # after the parity was taken
+    e0 = CHURN_EPOCHS[0]
+    buf = fleet._window_bufs[e0][0]
+    pos = {sw: i for i, sw in enumerate(fleet.frag_order)}
+    lost_rows = {(e - e0, pos[sw]) for e, sws in CHURN_LOST.items()
+                 for sw in sws}
+    err, dead_rows = 0.0, 0
+    for (args, kw), (rows, got) in zip(
+            _window_groups(fleet, rep, e0, dead_at=system._dead_at),
+            buf.device()):
+        plain = FK.fleet_update_ragged_ref(*_to_device(args, dev),
+                                           **kw).reshape(got.shape)
+        for e in range(got.shape[0]):
+            dead = system._dead_at.get(e0 + e, ())
+            for j, r in enumerate(rows):
+                if (e, int(r)) in lost_rows:
+                    assert plain[e, j].any(), "a lost cell sketched nothing"
+                    plain[e, j] = 0
+            dead_rows += _zero_rows(buf, [pos[sw] for sw in dead
+                                          if pos[sw] in set(rows.tolist())],
+                                    e)
+        err = max(err, float((got - plain).abs().max()))
+        assert torch.equal(got, plain), f"{kind}: churn window != plain"
+        del plain
+    assert dead_rows == 7 * len(victims), dead_rows
+    _zero_rows(buf, [pos[sw] for sw in CHURN_LOST[e0]])
+    if kind == "cs":
+        _timing_line(f"fleet_ragged cs churn window {e0} (dead segments "
+                     f"value 0)", kernel_timing(_window_groups(
+                         fleet, rep, e0, dead_at=system._dead_at), dev))
+
+    # the twin: the same window dispatched with nothing lost
+    ns = {sw: int(fleet._params_log[e0][i, FK.PARAM_N_SUB])
+          for i, sw in enumerate(fleet.frag_order)}
+    twin = F.FleetEpochRunner(dict(system.records[e0]._fragments), LOG2_TE,
+                              device=dev)
+    twin.run_window(e0, ns, [rep.epoch_packet(e, fleet.frag_order)
+                             for e in CHURN_EPOCHS],
+                    dead_by_epoch=[system._dead_at.get(e, ())
+                                   for e in CHURN_EPOCHS])
+    for e in CHURN_EPOCHS:
+        assert np.array_equal(twin._params_log[e], fleet._params_log[e])
+
+    # queries on the device, in this order: "recover" patches in place
+    recover = _Timed(fleet.recover)
+    fleet.recover = recover
+    rmses, q_s = {}, {}
+    try:
+        for failures in ("oblivious", "mask", "recover"):
+            q0 = time.perf_counter()
+            est = system.query_flows(keys, paths, epochs, merge="fragment",
+                                     failures=failures)
+            torch.cuda.synchronize()
+            q_s[failures] = time.perf_counter() - q0
+            assert est.shape == keys.shape and np.isfinite(est).all()
+            rmses[failures] = rmse(est, truth)
+            _pinned(f"churn {kind} window {WINDOW} {failures} RMSE",
+                    rmses[failures], CHURN_PIN[(kind, failures)], PIN_RTOL)
+    finally:
+        del fleet.recover
+    assert rmses["mask"] < rmses["oblivious"], rmses
+    assert rmses["recover"] <= rmses["mask"], rmses
+    assert fleet.has_device_window(epochs) and buf._host is None
+    recovered = {}
+    for _, out in recover.calls:
+        for e, sws in out.items():
+            recovered.setdefault(e, []).extend(sws)
+    assert recovered == CHURN_RECOVERABLE, recovered
+    tbuf = twin._window_bufs[e0][0]
+    for e, sws in recovered.items():
+        for sw in sws:
+            n, w = ns[sw], int(fleet._params_log[e][pos[sw],
+                                                    FK.PARAM_WIDTH])
+            a = buf.block(e - e0, pos[sw], 1, n, w)
+            b = tbuf.block(e - e0, pos[sw], 1, n, w)
+            assert torch.equal(a, b) and a.any(), \
+                f"recovered cell ({e}, {sw}) != the twin's"
+    unrecoverable = {e: sorted(set(sws) - set(recovered.get(e, ())))
+                     for e, sws in CHURN_LOST.items()}
+    for e, sws in unrecoverable.items():
+        assert not fleet.frag_live(e)[[pos[sw] for sw in sws]].any()
+        _zero_rows(buf, [pos[sw] for sw in sws], e - e0)
+    storages = {p.untyped_storage().data_ptr(): p.untyped_storage().nbytes()
+                for e in epochs for p in fleet._parity[e]}
+    parity_bytes = sum(storages.values())
+    obs = system.last_observability
+    rec_line = ""
+    if kind == "cs":
+        # the record plane of the churn window (its host copy, subepoch
+        # merge), where a dead cell's zero record enters an "oblivious"
+        # merge; the recovered cells were patched on the device above
+        es, truth_es = list(CHURN_EPOCHS), _churn_truth(sc)
+        rec = {}
+        for failures in ("mask", "oblivious"):
+            q0 = time.perf_counter()
+            est = system.query_flows(keys, paths, es, failures=failures)
+            rec[failures] = (rmse(est, truth_es), time.perf_counter() - q0)
+            assert est.shape == keys.shape and np.isfinite(est).all()
+            _pinned(f"churn cs window {e0} records {failures} RMSE",
+                    rec[failures][0], CHURN_PIN[("cs", f"records {failures}")],
+                    PIN_RTOL)
+        assert rec["mask"][0] < rec["oblivious"][0], rec
+        assert buf._host is not None and not buf.resident
+        rec_line = (f"; record plane of window {e0} (host copy, subepoch "
+                    f"merge over epochs {es[0]}-{es[-1]}): RMSE mask "
+                    f"{rec['mask'][0]!r} ({rec['mask'][1]:.2f} s), oblivious"
+                    f" {rec['oblivious'][0]!r} ({rec['oblivious'][1]:.2f} s;"
+                    f" the reference's, pinned)")
+    _log(f"churn   {kind} window {WINDOW}: replay launches {counts} "
+         f"(expected {expected}), update {dev_ms / 4:.2f} ms/window on the "
+         f"device timeline, host {host_s:.2f} s; masking {len(masking.calls)}"
+         f" calls {1e3 * sum(t for t, _ in masking.calls):.2f} ms; parity "
+         f"capture {len(parity.calls)} windows "
+         f"{1e3 * sum(t for t, _ in parity.calls):.2f} ms, "
+         f"{parity_bytes} B on the device ({len(storages)} group tensors); "
+         f"dead switches {victims} in epochs {d0}-{d1 - 1}; window {e0} "
+         f"groups == plain (max_abs_err {err}), {dead_rows} dead rows and "
+         f"the lost rows exactly zero; twin window == plain params")
+    _log(f"churn   {kind} queries of {len(keys)} 5-hop flows over "
+         f"{N_EPOCHS} epochs on the device: RMSE oblivious "
+         f"{rmses['oblivious']!r} ({q_s['oblivious']:.2f} s), mask "
+         f"{rmses['mask']!r} ({q_s['mask']:.2f} s), recover "
+         f"{rmses['recover']!r} ({q_s['recover']:.2f} s; the reference's, "
+         f"pinned); recovered {recovered}, unrecoverable {unrecoverable} "
+         f"(a double loss in the group: still masked and zero); recover "
+         f"{1e3 * recover.calls[0][0]:.2f} ms (first call; "
+         f"{len(recover.calls)} calls "
+         f"{1e3 * sum(t for t, _ in recover.calls):.2f} ms), recovered cells == the twin's bit for bit; "
+         f"last_observability: system {obs['observable_cells']} of "
+         f"{obs['total_cells']} cells, {obs['observable_epochs']} of "
+         f"{obs['epochs']} epochs observable, scale {obs['scale']}, "
+         f"{len(obs['config_clamps'])} clamps; fleet "
+         f"{fleet.last_observability}{rec_line}")
+    return counts["fleet_ragged"], err
+
+
+def _churn_truth(sc):
+    """The 5-hop flows' true sizes over CHURN_EPOCHS."""
+    wl = sc["wl"]
+    in_es = np.isin(wl.pkt_ts >> LOG2_TE, list(CHURN_EPOCHS))
+    return np.bincount(wl.pkt_flow[in_es],
+                       minlength=len(wl.keys))[wl.path_len == 5]
+
+
+def _pinned_digest(what, n_log):
+    got = n_log_digest(n_log)
+    assert got == CHURN_N_LOG_PIN[what], \
+        f"{what} n trajectory {got} != the reference's " \
+        f"{CHURN_N_LOG_PIN[what]}"
+
+
+def _churn_epoch(dev, sc):
+    """Per-epoch cs under the same schedule: the ragged run (B1) and a
+    dense twin (B3), both keeping their counters on the card, held to
+    each other and to the plain versions on a churn epoch; subepoch-merge
+    queries over the churn window under "mask" and "oblivious"."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.core.fleet import mask_fragment_values
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+
+    rep, mems = sc["rep"], sc["mems"]
+    keys, paths = sc["keys"], sc["paths"]
+    runs = {}
+    for layout, name in (("ragged", "fleet_ragged"), ("dense", "fleet_dense")):
+        system = DiSketchSystem(mems, "cs", rho_target=RHO["cs"],
+                                log2_te=LOG2_TE, fleet_kwargs={
+                                    "layout": layout, "keep_stacked": True})
+        counts, host_s, dev_ms = _replay(rep, system,
+                                         failures=churn_schedule())
+        assert counts[name] >= N_EPOCHS and sum(counts.values()) == \
+            counts[name], counts
+        runs[layout] = (system, counts, host_s, dev_ms)
+    ragged, dense = runs["ragged"][0], runs["dense"][0]
+    _pinned_digest("epoch cs", ragged.n_log)
+    d0, d1, victims = CHURN_DEAD
+    assert ragged._dead_at == {e: frozenset(victims) for e in range(d0, d1)}
+    assert dense.n_log == ragged.n_log and dense._dead_at == ragged._dead_at
+    for e in range(N_EPOCHS):
+        assert sorted(dense.records[e]) == sorted(ragged.records[e])
+        for sw, rec in ragged.records[e].items():
+            assert np.array_equal(dense.records[e][sw].counters,
+                                  rec.counters), f"dense ({e}, {sw})"
+    dead_rows = 0
+    for e, dead in ragged._dead_at.items():
+        for s in (ragged, dense):
+            dead_rows += _zero_rows(s.fleet._window_bufs[e][0],
+                                    [s.fleet._frag_pos[sw] for sw in dead])
+    # B1 and B3 against their plain versions on the first churn epoch
+    e = d0
+    fleet = ragged.fleet
+    err = 0.0
+    for (args, kw), (_, got) in zip(
+            _window_groups(fleet, rep, e, n_epochs=1,
+                           dead_at=ragged._dead_at),
+            fleet._window_bufs[e][0].device()):
+        plain = FK.fleet_update_ragged_ref(*_to_device(args, dev),
+                                           **kw).reshape(got.shape)
+        err = max(err, float((got - plain).abs().max()))
+        assert torch.equal(got, plain), "per-epoch churn B1 != plain"
+    params = dense.fleet._params_log[e]
+    packet = mask_fragment_values(
+        rep.epoch_packet(e, fleet.frag_order),
+        [fleet._frag_pos[sw] for sw in victims])
+    rect = _to_device(packet.densify(fleet.blk)
+                      + (params, np.zeros(0, np.int32)), dev)[:4]
+    plain = FK.fleet_update_ref(
+        *rect, n_sub_max=int(params[:, FK.PARAM_N_SUB].max()),
+        width_max=int(params[:, FK.PARAM_WIDTH].max()), log2_te=LOG2_TE,
+        signed=True)
+    for rows, c in dense.fleet._window_bufs[e][0].device():
+        part = plain[torch.as_tensor(rows, device=dev), :c.shape[2],
+                     :c.shape[3]]
+        err = max(err, float((c[0] - part).abs().max()))
+        assert torch.equal(c[0], part), "per-epoch churn B3 != plain"
+    del plain
+    es, truth_es = list(CHURN_EPOCHS), _churn_truth(sc)
+    got = {}
+    for failures in ("mask", "oblivious"):
+        q0 = time.perf_counter()
+        est = ragged.query_flows(keys, paths, es, failures=failures)
+        q_s = time.perf_counter() - q0
+        assert est.shape == keys.shape and np.isfinite(est).all()
+        got[failures] = (rmse(est, truth_es), q_s)
+        _pinned(f"churn cs per-epoch {failures} RMSE", got[failures][0],
+                CHURN_PIN[("cs", f"epoch {failures}")], PIN_RTOL)
+    for layout, (s, counts, host_s, dev_ms) in runs.items():
+        _log(f"churn   cs per-epoch {layout}: launches {counts}, update "
+             f"{dev_ms / N_EPOCHS:.3f} ms/epoch on the device timeline, "
+             f"host {host_s:.2f} s")
+    _log(f"churn   cs per-epoch: n trajectory the reference's (pinned); "
+         f"dense records == ragged in all {N_EPOCHS} epochs; {dead_rows} "
+         f"dead rows exactly zero (B1 and B3); epoch {e} B1 groups and B3 "
+         f"== plain (max_abs_err {err}); subepoch merge over epochs "
+         f"{es[0]}-{es[-1]}: RMSE mask {got['mask'][0]!r} "
+         f"({got['mask'][1]:.2f} s), oblivious {got['oblivious'][0]!r} "
+         f"({got['oblivious'][1]:.2f} s; the reference's, pinned)")
+    return (runs["ragged"][1]["fleet_ragged"],
+            runs["dense"][1]["fleet_dense"], err)
+
+
+def churn_phase(dev, sc):
+    """Churn and failure recovery at the §6.1 setting: window 8 for cs and
+    cms with parity groups, then the per-epoch path.  Returns what the
+    kernel line needs."""
+    import torch
+
+    from repro_torch.core.fleet import parity_groups_chunked
+
+    groups = parity_groups_chunked(range(len(sc["mems"])), PARITY_GROUP)
+    res = {"ragged": 0, "dense": 0, "max_abs_err": 0.0}
+    for kind in ("cs", "cms"):
+        launches, err = _churn_window(dev, sc, kind, groups)
+        res["ragged"] += launches
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        torch.cuda.empty_cache()
+    ragged, dense, err = _churn_epoch(dev, sc)
+    res["ragged"] += ragged
+    res["dense"] += dense
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    return res
+
+
 def _b2_rows(params, signed):
     """``ops._launch`` keywords of the B2 loop's launches, one per row of
     an epoch's parameter table."""
@@ -1615,19 +2022,21 @@ def main() -> int:
         um_w = _phase(univmon_window, dev, sc)
         um_e = _phase(univmon_epoch, dev, sc)
         _phase(aggregated_phase, dev, sc)
+        churn = _phase(churn_phase, dev, sc)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
             ("fleet_ragged", "fleet.py:297",
-             res["launches"] + ep["ragged"] + um_w["launches"] + um_e["ragged"],
+             res["launches"] + ep["ragged"] + um_w["launches"]
+             + um_e["ragged"] + churn["ragged"],
              max(worst["fleet_ragged"], res["max_abs_err"],
-                 um_w["max_abs_err"]), timing),
+                 um_w["max_abs_err"], churn["max_abs_err"]), timing),
             ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),
-            ("fleet_dense", "fleet.py:160", ep["dense"],
-             max(worst["fleet_dense"], ep["max_abs_err"]),
-             ep_timing["fleet_dense"]),
+            ("fleet_dense", "fleet.py:160", ep["dense"] + churn["dense"],
+             max(worst["fleet_dense"], ep["max_abs_err"],
+                 churn["max_abs_err"]), ep_timing["fleet_dense"]),
         ]
         line = {"kernels": [{
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",

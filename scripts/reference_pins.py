@@ -1,15 +1,30 @@
 """The JAX reference's answers at chip_smoke.py's §6.1 setting: the values
 the smoke pins (``RHO["um"]``, ``RMSE_PIN``, ``AGG_RMSE_PIN``,
-``ENTROPY_PIN``), computed on the CPU by the reference's numpy paths (the
-loop backend, ``process_epoch``, ``query_window``) and, for the window-8
-entropy at k_heavy 1024, its jnp device G-sum.
+``ENTROPY_PIN``, ``CHURN_PIN``), computed on the CPU by the reference's
+numpy paths (the loop backend, ``process_epoch``, ``query_window``) and,
+for the window-8 entropy at k_heavy 1024, its jnp device G-sum.
 
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
-SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window
-(default: all).  Prints one ``name value`` line per result, then one JSON
-object.  All sections take a few minutes at this full-scale setting.
+SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
+churn (default: all).  Prints one ``name value`` line per result, then one
+JSON object.  All sections take a few minutes at this full-scale setting;
+``churn`` alone took 31.8 s (wall) on an 8-core x86 CPU.
+
+The ``churn`` section runs the smoke's failure schedule
+(``churn_schedule``: 5 of 20 switches die at epoch 17 and return at 25,
+beside seeded resource pressure).  Its per-epoch values come from the
+reference's loop backend through ``Replayer.run(failures=...)``.  Its
+window-8 values come from ``ChurnWindowEmulation``, the window path built
+from the reference's parts, since the reference's fleet backend cannot
+run on a CPU under this jax: ``process_epoch`` with ``ns`` and the widths
+frozen per window, dead cells empty and lost cells zeroed after their
+PEBs, the reference's own ``apply_event`` and ``_apply_pending_resizes``
+on a loop-backend system for the control, and ``query_window(merge=
+"fragment")`` for the answers.  ``tests/test_torch_churn.py`` holds the
+port to the same emulation at a small size.
 """
+import hashlib
 import json
 import sys
 
@@ -23,7 +38,8 @@ from repro.core.disketch import (AggregatedSystem, DiscoSystem,
 from repro.core.fragment import FragmentConfig, process_epoch
 from repro.core.hashing import level_of
 from repro.core.sketches import true_entropy
-from repro.net.simulator import Replayer, rmse
+from repro.net.simulator import (ComposedSchedule, FailureSchedule,
+                                 Replayer, ResourcePressure, rmse)
 from repro.net.topology import FatTree, core_on_path
 from repro.net.traffic import gen_workload, gini_memories
 
@@ -33,7 +49,9 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window")
+            "um_window", "churn")
+# the churn phase: the window that holds the deaths, and the parity groups
+CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 
 out = {}
 
@@ -69,6 +87,148 @@ def window_records(rep, mems, kind, **frag_kw):
             for sw, peb in pebs.items():
                 ns[sw] = REQ.next_n(ns[sw], peb, RHO[kind])
     return records
+
+
+def churn_schedule(n_switches=20):
+    """chip_smoke.py's churn: a quarter of the switches die at epoch 17
+    (window offset 1) and return at 25, beside seeded resource pressure."""
+    return ComposedSchedule([
+        FailureSchedule.random(n_switches, 0.25, down_epoch=17, up_epoch=25,
+                               seed=3),
+        ResourcePressure(n_switches, horizon=N_EPOCHS, seed=5)])
+
+
+def n_log_digest(n_log):
+    """A short digest of an n trajectory (one {switch: n} per epoch)."""
+    rows = [[[int(sw), int(n)] for sw, n in sorted(d.items())]
+            for d in n_log]
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
+
+
+class ChurnWindowEmulation:
+    """The fleet window path under churn, built from the reference's parts.
+
+    ``ctl`` is a reference ``DiSketchSystem(backend="loop")`` that carries
+    the control plane: its ``apply_event``, ``_apply_pending_resizes`` and
+    re-equalization run in the order of the reference's fleet
+    ``run_window``.  Each window runs ``process_epoch`` at the ``ns`` and
+    widths frozen at its start; a dead cell sketches nothing (the fleet
+    masks its packets to value 0), and a lost cell is zeroed after its PEB
+    is taken.  ``saved`` keeps the lost cells' counters, which parity
+    recovery must give back."""
+
+    def __init__(self, streams_of, mems, kind, rho, log2_te, n_epochs,
+                 window, schedule, parity_groups=None, subepoching=True,
+                 **sys_kw):
+        self.kind = kind
+        self.parity_groups = parity_groups
+        self.ctl = (DiSketchSystem if subepoching else DiscoSystem)(
+            mems, kind, rho_target=rho, log2_te=log2_te, **sys_kw)
+        ctl = self.ctl
+        empty = SwitchStream(np.zeros(0, np.uint32), np.zeros(0, np.int64),
+                             np.zeros(0, np.int64))
+        self.lost, self.saved, self.ns_by_window = {}, {}, {}
+        for e0 in range(0, n_epochs, window):
+            eps = list(range(e0, min(e0 + window, n_epochs)))
+            events = [schedule.advance(e) for e in eps]
+            ctl._apply_pending_resizes()
+            for ev in events[0]:
+                ctl.apply_event(ev)
+            frozen = (dict(ctl.ns) if subepoching
+                      else {sw: 1 for sw in ctl.fragments})
+            frags = dict(ctl.fragments)
+            self.ns_by_window[e0] = frozen
+            dead_sets, fail_pts = [frozenset(ctl.dead)], []
+            for k in range(1, len(eps)):
+                for ev in events[k]:
+                    if ev.kind == "fail" and ev.switch not in ctl.dead:
+                        fail_pts.append((k, ev.switch))
+                    ctl.apply_event(ev, defer_resize=True)
+                dead_sets.append(frozenset(ctl.dead))
+            lost_sets = [set() for _ in eps]
+            for k, sw in fail_pts:
+                for k2 in range(k):
+                    if sw not in dead_sets[k2]:
+                        lost_sets[k2].add(sw)
+            window_pebs = []
+            for k, e in enumerate(eps):
+                recs, pebs = {}, {}
+                for sw, cfg in frags.items():
+                    st = (empty if sw in dead_sets[k]
+                          else streams_of(e).get(sw, empty))
+                    rec = process_epoch(cfg, e, frozen[sw], st.keys,
+                                        st.values, st.ts, e << log2_te,
+                                        log2_te, single_hop=st.single_hop)
+                    if sw not in dead_sets[k]:
+                        pebs[sw] = REQ.peb_epoch(rec)
+                    if sw in lost_sets[k]:
+                        self.saved[(e, sw)] = rec.counters.copy()
+                        rec.counters[...] = 0
+                    recs[sw] = rec
+                if lost_sets[k]:
+                    self.lost[e] = set(lost_sets[k])
+                ctl.records[e] = recs
+                window_pebs.append(pebs)
+            # the reference's run_window tail: Eq. 6 replayed in order
+            for k, e in enumerate(eps):
+                if dead_sets[k]:
+                    ctl._dead_at[e] = dead_sets[k]
+                ctl.peb_log.append(window_pebs[k])
+                for sw in window_pebs[k]:
+                    ctl._peb_width[sw] = ctl.fragments[sw].width
+                if subepoching and not ctl.control_external:
+                    for sw, peb in window_pebs[k].items():
+                        ctl.ns[sw] = REQ.next_n(ctl.ns[sw], peb, rho)
+                ctl.n_log.append(dict(ctl.ns))
+
+    def recoverable(self):
+        """``{epoch: [switch]}``: lost cells alone in their parity group."""
+        out = {}
+        for e in sorted(self.lost):
+            for sw in sorted(self.lost[e]):
+                group = next((g for g in self.parity_groups or ()
+                              if sw in g), None)
+                if group is not None and not any(
+                        o != sw and o in self.lost[e] for o in group):
+                    out.setdefault(e, []).append(sw)
+        return out
+
+    def recover(self):
+        """Give the recoverable lost cells their counters back."""
+        done = self.recoverable()
+        for e, sws in done.items():
+            for sw in sws:
+                self.ctl.records[e][sw].counters[...] = self.saved[(e, sw)]
+                self.lost[e].discard(sw)
+        return done
+
+    def valid(self, sw, e):
+        return (sw not in self.ctl._dead_at.get(e, frozenset())
+                and sw not in self.lost.get(e, ()))
+
+    def query(self, keys, paths, epochs, failures, merge="fragment"):
+        """``query_flows`` of the fleet under ``failures``: per path group,
+        ``query_window`` over the on-path records (all of them under
+        "oblivious"; the valid ones, scaled by E / E_observable, under
+        "mask"; "recover" recovers first)."""
+        if failures == "recover":
+            self.recover()
+            failures = "mask"
+        out = np.zeros(len(keys))
+        for path, idxs in path_groups(paths).items():
+            recs = [[self.ctl.records[e][sw] for sw in path
+                     if failures == "oblivious" or self.valid(sw, e)]
+                    for e in epochs]
+            scale = 1.0
+            if failures != "oblivious":
+                n_obs, scale = RQ.window_observability(recs)
+                if not n_obs:
+                    raise ValueError(f"path {path} is unobservable")
+            out[idxs] = RQ.query_window(
+                recs, keys[idxs], self.kind,
+                single_hop=np.full(len(idxs), len(path) == 1),
+                level=0 if self.kind == "um" else None, merge=merge) * scale
+        return out
 
 
 def path_groups(paths):
@@ -179,7 +339,50 @@ def main(sections):
         # k_heavy 1024 binds: lax.top_k's order (ties to the lower index)
         save("window 8 fragment k_heavy 1024", entropy(
             um_gsum_device(ests, lvl, _g_entropy, k_heavy=1024)))
+    if "churn" in sections:
+        churn(wl, rep, mems, keys, truth, paths, epochs)
     print(json.dumps(out))
+
+
+def churn(wl, rep, mems, keys, truth, paths, epochs):
+    """The churn phase's pins: per-epoch cs on the loop backend, window 8
+    (cs and cms, parity groups of 5) on ``ChurnWindowEmulation``."""
+    es = list(CHURN_EPOCHS)
+    in_es = np.isin(wl.pkt_ts >> LOG2_TE, es)
+    truth_es = np.bincount(wl.pkt_flow[in_es],
+                           minlength=len(wl.keys))[wl.path_len == 5]
+    s = DiSketchSystem(mems, "cs", rho_target=RHO["cs"], log2_te=LOG2_TE)
+    rep.run(s, failures=churn_schedule())
+    save("churn epoch dead_at", {int(e): sorted(int(x) for x in d)
+                                 for e, d in sorted(s._dead_at.items())})
+    save("churn epoch cs n_log", n_log_digest(s.n_log))
+    save("churn epoch cs clamps", len(s.clamp_log))
+    for failures in ("mask", "oblivious"):
+        save(f"churn epoch cs {failures}", rmse(s.query_flows(
+            keys, paths, es, failures=failures), truth_es))
+    groups = [list(range(i, i + PARITY_GROUP))
+              for i in range(0, len(mems), PARITY_GROUP)]
+    for kind in ("cs", "cms"):
+        em = ChurnWindowEmulation(rep.epoch_stream, mems, kind, RHO[kind],
+                                  LOG2_TE, N_EPOCHS, WINDOW,
+                                  churn_schedule(), parity_groups=groups)
+        save(f"churn window {kind} n_log", n_log_digest(em.ctl.n_log))
+        save(f"churn window {kind} lost",
+             {int(e): sorted(int(x) for x in sws)
+              for e, sws in sorted(em.lost.items())})
+        save(f"churn window {kind} recoverable",
+             {int(e): [int(x) for x in sws]
+              for e, sws in em.recoverable().items()})
+        for failures in ("oblivious", "mask", "recover"):
+            save(f"churn window {kind} {failures}", rmse(em.query(
+                keys, paths, epochs, failures), truth))
+        if kind == "cs":
+            # the record plane (subepoch merge) of the churn window, after
+            # "recover": its dead cells hold zero records, which "oblivious"
+            # merges and "mask" drops
+            for failures in ("mask", "oblivious"):
+                save(f"churn window cs records {failures}", rmse(em.query(
+                    keys, paths, es, failures, merge="subepoch"), truth_es))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Error equalization (paper §4.2): PEB estimation + the n-control loop
-(port of ``repro/core/equalize.py`` without the churn re-equalization).
+(port of ``repro/core/equalize.py``).
 
 Each fragment estimates its probabilistic error bound (PEB) from its own
 counters (Eq. 4), averages it over the epoch's subepochs (Eq. 5), and
 doubles/halves its number of subepochs for the next epoch to approach the
-network-wide target (Eq. 6).
+network-wide target (Eq. 6).  After a churn event the survivors jump to
+Eq. 6's fixed point in one step (``converge_n``, ``reequalize``, §6).
 """
 from __future__ import annotations
 
@@ -76,3 +77,33 @@ def next_n(n: int, peb: float, rho_target: float) -> int:
     if peb < rho_target / 2.0:
         return max(1, n // 2)
     return n
+
+
+def converge_n(n: int, peb: float, rho_target: float) -> int:
+    """Eq. 6 iterated to its fixed point in one call.
+
+    ``peb`` is measured at the current ``n``; under the §4.2 error model
+    each doubling of the subepoch count halves a record's load and so its
+    Eq. 4 bound, so the PEB predicted at ``n'`` is ``peb * n / n'``.  The
+    [rho/2, 2 rho] band spans a factor of 4 while a step moves a factor of
+    2, so the iteration cannot oscillate; a fragment already in the band
+    keeps its ``n`` (the call is idempotent)."""
+    if peb <= 0.0 or not np.isfinite(peb):
+        return n
+    n0, peb0 = n, peb
+    for _ in range(2 * N_MAX.bit_length()):
+        nn = next_n(n, peb0 * n0 / n, rho_target)
+        if nn == n:
+            return n
+        n = nn
+    return n
+
+
+def reequalize(ns, pebs, rho_target: float):
+    """§6 re-equalization after a churn event: ``converge_n`` for every
+    fragment of ``ns`` ({switch: n}) against its last observed PEB
+    (``pebs``); switches with no observation keep their ``n``, so the
+    survivors of a fleet that failed before its first epoch stay
+    bit-identical to a fleet that never failed."""
+    return {sw: converge_n(n, pebs[sw], rho_target) if sw in pebs else n
+            for sw, n in ns.items()}

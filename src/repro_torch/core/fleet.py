@@ -25,8 +25,16 @@ packed timestamp (``fold_packet_flags``), exactly as in the reference, so
 counters are bit-identical to it for cs, cms and um, with or without
 mitigation.
 
-Not ported yet: device meshes, churn (dead/lost fragments), XOR parity
-and the export hooks.
+Churn (§6): a dead switch keeps forwarding but its sketch resource is
+reclaimed, so its packets become value-0 no-ops in the update
+(``mask_fragment_values``) and its rows come out exactly zero; a switch
+that dies inside a window also loses the counters of its earlier epochs
+in that window (*lost* cells), which XOR parity over a group of
+fragments (``parity_groups``) can reconstruct (``recover``).  A liveness
+registry per epoch masks dead and lost cells from the queries
+(``failures="mask"``) and scales blind epochs.
+
+Not ported yet: device meshes and the export hooks.
 """
 from __future__ import annotations
 
@@ -50,6 +58,10 @@ from .fragment import (EpochRecords, FragmentConfig, _ROLE_COL, _ROLE_SIGN,
 #: the group's row indices within an epoch and ``counters`` its
 #: ``(E, R_g, n_sub_g, width_g)`` f32 tensor.
 StackGroups = List[Tuple[np.ndarray, torch.Tensor]]
+
+#: Keys a device window query gathers at once, bounding its ``(E, R, K)``
+#: temporaries.
+QUERY_CHUNK = 1 << 16
 
 
 @dataclass
@@ -153,6 +165,36 @@ def fold_packet_flags(packet: FleetPacket, log2_te: int, *,
     if mitigation and packet.single_hop is not None:
         ts = ts | (np.asarray(packet.single_hop, np.int64) << SH_SHIFT)
     return replace(packet, ts=ts)
+
+
+def mask_fragment_values(packet: FleetPacket,
+                         positions: Sequence[int]) -> FleetPacket:
+    """Mask fragments out of a packed epoch by zeroing their segments'
+    values: value-0 packets are no-ops of the update kernels (as the blk
+    padding is), so a masked fragment's counters come out exactly zero
+    while the offsets and packet count stay as they were.  ``positions``
+    are ``frag_order`` positions (a dead switch keeps *forwarding*; only
+    its reclaimed sketch stops counting).  Keys and ts are shared with the
+    input; only ``values`` is copied."""
+    if not len(positions):
+        return packet
+    vals = np.array(packet.values, copy=True)
+    for i in positions:
+        vals[int(packet.offsets[i]):int(packet.offsets[i + 1])] = 0
+    return replace(packet, values=vals)
+
+
+def parity_groups_chunked(frag_order: Sequence[int],
+                          group_size: int) -> List[List[int]]:
+    """Disjoint XOR-parity groups from chunks of the fleet order (the last
+    group may be smaller): one lost fragment per group and epoch can be
+    rebuilt exactly; the size trades parity memory (about one fragment
+    per group) against the chance of a double loss."""
+    if group_size < 1:
+        raise ValueError(f"group_size must be >= 1, got {group_size}")
+    order = list(frag_order)
+    return [order[i:i + group_size]
+            for i in range(0, len(order), group_size)]
 
 
 def _bucket_blocks(nb: int, floor: int = 32) -> int:
@@ -307,13 +349,50 @@ class _WindowBuffer:
     The first ``host()`` call copies the groups to the host, group by
     group, each as one int64 ``(E, R_g, n_g, w_g)`` array, and releases
     the device groups; the padded ``(E, R, n_sub_max, width_max)`` array
-    is built only when ``dense_host()`` is asked for it.
+    is built only when ``dense_host()`` is asked for it.  ``block`` reads
+    and ``patch`` writes a fragment's rows in whichever copy holds them.
     """
 
     def __init__(self, groups: StackGroups, shape: Tuple[int, ...]):
         self._groups: Optional[StackGroups] = groups
         self._shape = shape
         self._host: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
+        # row -> (its group, its position in the group)
+        self._where = {int(r): (g, j) for g, (rows, _) in enumerate(groups)
+                       for j, r in enumerate(rows)}
+
+    def _locate(self, row: int, n_rows: int) -> Tuple[int, int]:
+        g, j = self._where[int(row)]
+        if any(self._where.get(int(row) + k) != (g, j + k)
+               for k in range(n_rows)):
+            raise ValueError(f"rows {row}..{row + n_rows - 1} are not "
+                             "contiguous in one group")
+        return g, j
+
+    def block(self, e_idx, row: int, n_rows: int, n: int,
+              w: int) -> torch.Tensor:
+        """Rows ``[row, row + n_rows)`` of one epoch (or of the epochs
+        ``e_idx`` slices), cut to ``[:n, :w]``: a view of the resident f32
+        group, or of the host int64 copy."""
+        g, j = self._locate(row, n_rows)
+        if self.resident:
+            return self._groups[g][1][e_idx, j:j + n_rows, :n, :w]
+        return torch.from_numpy(self._host[g][1][e_idx, j:j + n_rows, :n, :w])
+
+    def patch(self, e_idx: int, row: int, counters: torch.Tensor) -> None:
+        """Overwrite the ``[:n, :w]`` block of rows ``[row, row + l)`` of
+        one epoch with exact integer ``(l, n, w)`` counters (XOR-parity
+        recovery): in the resident group, or in the host copy *in place*,
+        so the record views already handed out see the reconstruction.
+        The group's padding beyond ``(n, w)`` stays zero."""
+        l, n, w = counters.shape
+        g, j = self._locate(row, l)
+        if self.resident:
+            c = self._groups[g][1]
+            c[e_idx, j:j + l, :n, :w] = counters.to(c.device, c.dtype)
+        else:
+            self._host[g][1][e_idx, j:j + l, :n, :w] = \
+                counters.to(torch.int64).cpu().numpy()
 
     @property
     def resident(self) -> bool:
@@ -439,8 +518,6 @@ class FleetEpochRunner:
             raise ValueError(f"unknown layout {layout!r}")
         if mesh is not None:
             raise NotImplementedError("device meshes are not ported yet")
-        if parity_groups is not None:
-            raise NotImplementedError("XOR parity groups are not ported yet")
         kinds = {cfg.kind for cfg in fragments.values()}
         if kinds - {"cs", "cms", "um"} or len(kinds) > 1:
             raise ValueError(
@@ -493,6 +570,43 @@ class FleetEpochRunner:
         self._params_log: Dict[int, np.ndarray] = {}
         # epoch -> (window buffer, epoch index within the window)
         self._window_bufs: Dict[int, Tuple[_WindowBuffer, int]] = {}
+        # --- liveness under churn ---------------------------------------
+        # epoch -> (n_rows,) bool row liveness; no entry: every row live.
+        self._row_live: Dict[int, np.ndarray] = {}
+        # epoch -> (n_rows,) bool rows that exported a record, for the
+        # per-epoch runs with dead switches (they export none, so not even
+        # an oblivious merge sees them, as on the record plane).
+        self._recorded: Dict[int, np.ndarray] = {}
+        # epoch -> frag_order positions whose counters were lost (sketched,
+        # then reclaimed before the window's export): masked, and
+        # recoverable from parity while one per group.
+        self._lost: Dict[int, set] = {}
+        # epoch -> per-group int32 XOR parity on the device: each member's
+        # (L, n_i, w_i) block flattened, zero-padded to the group's
+        # longest member, taken before the lost cells are zeroed.
+        self._parity: Dict[int, List[torch.Tensor]] = {}
+        self._frag_pos = {sw: i for i, sw in enumerate(self.frag_order)}
+        self.parity_groups: Optional[List[np.ndarray]] = None
+        self._group_of: Dict[int, int] = {}
+        if parity_groups is not None:
+            self.parity_groups = []
+            for gi, group in enumerate(parity_groups):
+                idx = []
+                for sw in group:
+                    if sw not in self._frag_pos:
+                        raise ValueError(
+                            f"parity group switch {sw} is not in the fleet")
+                    i = self._frag_pos[sw]
+                    if i in self._group_of:
+                        raise ValueError(
+                            f"switch {sw} appears in more than one parity "
+                            "group")
+                    self._group_of[i] = gi
+                    idx.append(i)
+                self.parity_groups.append(np.asarray(idx, np.int64))
+        # What the last window query could observe (``_liveness_sels``):
+        # queried epochs, those with a live on-path row, and the scale.
+        self.last_observability: Optional[Dict] = None
 
     @classmethod
     def from_window(cls, fragments: Dict[int, FragmentConfig], log2_te: int,
@@ -621,20 +735,52 @@ class FleetEpochRunner:
                     self.kind).cpu().numpy()
         return pebs
 
+    def refresh_widths(self) -> None:
+        """Recompute the cached widths after a resize replaced a
+        ``FragmentConfig``.  Past epochs keep theirs: queries read the hash
+        moduli from the per-epoch parameter tables."""
+        self.widths = np.array([self.fragments[sw].width
+                                for sw in self.frag_order], np.int64)
+
+    def _set_liveness(self, epoch: int, invalid: set, lost: set) -> None:
+        """Record one processed epoch's dead and lost switches, dropping
+        what a previous run of the epoch left."""
+        self._lost.pop(epoch, None)
+        self._parity.pop(epoch, None)
+        self._recorded.pop(epoch, None)
+        if not invalid:
+            self._row_live.pop(epoch, None)
+            return
+        L = self.n_levels
+        live = np.ones(len(self.frag_order) * L, bool)
+        for sw in invalid:
+            i = self._frag_pos[sw]
+            live[i * L:(i + 1) * L] = False
+        self._row_live[epoch] = live
+        if lost:
+            self._lost[epoch] = {self._frag_pos[sw] for sw in lost}
+
     def run_epoch(self, epoch: int, ns: Dict[int, int],
                   streams: Dict[int, "SwitchStream"],
                   packet: Optional[FleetPacket] = None,
+                  dead: Optional[Sequence[int]] = None,
                   ) -> Tuple[Dict[int, EpochRecords], Dict[int, float]]:
         """One epoch, ``ns`` per fragment: the update launches, the peak and
         the PEBs on the device, then each fragment's live ``[:n, :width]``
         block (``[:L, :n, :width]`` for UnivMon) copied to the host as its
         int64 record.  ``packet`` (a prepacked ``FleetPacket``) skips
-        packing ``streams``."""
+        packing ``streams``.  ``dead`` switches hold no sketch memory: their
+        packets are value-0 no-ops, so their rows come out zero, and they
+        get no record and no PEB (as the loop backend skips them)."""
         if packet is None:
             packet = pack_streams(streams, self.frag_order)
         if packet.frag_order != self.frag_order:
             raise ValueError("packet fragment order differs from the "
                              "fleet's")
+        dead_set = set(dead or ()) & set(self.frag_order)
+        if dead_set:
+            packet = mask_fragment_values(
+                packet, sorted(self._frag_pos[sw] for sw in dead_set))
         self._check_input_mass([packet])
         L = self.n_levels
         params = build_params(self.fragments, epoch, ns, self.frag_order)
@@ -646,6 +792,8 @@ class FleetEpochRunner:
         for rows, counters in groups:
             for j in range(0, len(rows), L):
                 i = int(rows[j]) // L
+                if self.frag_order[i] in dead_set:
+                    continue
                 cfg = self.fragments[self.frag_order[i]]
                 n = int(n_arr[i])
                 c = counters[0, j:j + L, :n, :cfg.width].cpu().numpy()
@@ -658,21 +806,35 @@ class FleetEpochRunner:
         # buffer would answer queries with the previous run's counters.
         self._window_bufs.pop(epoch, None)
         self._params_log.pop(epoch, None)
+        self._set_liveness(epoch, dead_set, set())
+        if dead_set:
+            self._recorded[epoch] = self._row_live[epoch]
         if self.keep_stacked:
             self._register_window(
                 epoch, [params], groups,
                 (1, len(params), int(n_arr.max(initial=1)),
                  int(self.widths.max(initial=4))))
-        pebs = {sw: float(pebs_arr[i]) for i, sw in enumerate(self.frag_order)}
-        return {sw: recs[sw] for sw in self.frag_order}, pebs
+        pebs = {sw: float(pebs_arr[i]) for i, sw in enumerate(self.frag_order)
+                if sw not in dead_set}
+        return {sw: recs[sw] for sw in self.frag_order if sw in recs}, pebs
 
     def run_window(self, epoch0: int, ns: Dict[int, int],
                    packets: Sequence[FleetPacket],
+                   dead_by_epoch: Optional[Sequence[Sequence[int]]] = None,
+                   lost_by_epoch: Optional[Sequence[Sequence[int]]] = None,
                    ) -> Tuple[List[WindowRecords], List[Dict[int, float]]]:
         """Epoch-window super-dispatch: E epochs x F fragments, ``ns``
         frozen for the window.  Only the overflow peak (one scalar) and
         the PEBs leave the device here; the counters stay resident until
-        the record plane asks for them."""
+        the record plane asks for them.
+
+        Churn, as one switch set per epoch: ``dead_by_epoch`` switches hold
+        no sketch memory in that epoch (value-0 packets, zero rows, masked,
+        no PEB); ``lost_by_epoch`` switches sketched the epoch but their
+        counters were reclaimed before the window's export.  In that order:
+        the PEBs and the parity of every group come from the counters as
+        dispatched, then the lost rows are zeroed, then the liveness of
+        each epoch is recorded."""
         e_count = len(packets)
         if e_count < 1:
             raise ValueError("run_window needs at least one epoch")
@@ -680,6 +842,18 @@ class FleetEpochRunner:
             if packet.frag_order != self.frag_order:
                 raise ValueError("packet fragment order differs from the "
                                  "fleet's")
+        fleet_set = set(self.frag_order)
+        dead_sets = ([set(d) & fleet_set for d in dead_by_epoch]
+                     if dead_by_epoch is not None else [set()] * e_count)
+        lost_sets = ([set(d) & fleet_set for d in lost_by_epoch]
+                     if lost_by_epoch is not None else [set()] * e_count)
+        if len(dead_sets) != e_count or len(lost_sets) != e_count:
+            raise ValueError("dead_by_epoch and lost_by_epoch need one set "
+                             f"per epoch of the window ({e_count})")
+        if any(dead_sets):
+            packets = [mask_fragment_values(
+                p, sorted(self._frag_pos[sw] for sw in dead))
+                for p, dead in zip(packets, dead_sets)]
         self._check_input_mass(packets)
         n_frags = len(self.frag_order)
         L = self.n_levels
@@ -696,15 +870,124 @@ class FleetEpochRunner:
             epoch0, params_by_epoch, groups,
             (e_count, rows_per_epoch, int(n_arr.max(initial=1)),
              int(self.widths.max(initial=4))))
+        parity_by_epoch = None
+        if self.parity_groups is not None:
+            parity_by_epoch = self._window_parity(buf, params_by_epoch[0],
+                                                  e_count)
+        for e, lost in enumerate(lost_sets):
+            for sw in lost:
+                i = self._frag_pos[sw]
+                buf.patch(e, i * L, torch.zeros(
+                    (L,) + self._block_shape(params_by_epoch[0], i),
+                    device=self.device))
         # snapshot the config dict: records keep this window's widths
         frags_now = dict(self.fragments)
         recs_list = [WindowRecords(buf, e, epoch0 + e, frags_now,
                                    self.frag_order, n_arr, n_levels=L)
                      for e in range(e_count)]
         pebs_list = [{sw: float(pebs_all[e, i])
-                      for i, sw in enumerate(self.frag_order)}
+                      for i, sw in enumerate(self.frag_order)
+                      if sw not in dead_sets[e]}
                      for e in range(e_count)]
+        for e in range(e_count):
+            self._set_liveness(epoch0 + e, dead_sets[e] | lost_sets[e],
+                               lost_sets[e])
+            if parity_by_epoch is not None:
+                self._parity[epoch0 + e] = parity_by_epoch[e]
         return recs_list, pebs_list
+
+    def _block_shape(self, params: np.ndarray, i: int) -> Tuple[int, int]:
+        """Fragment ``i``'s live ``(n, width)`` in an epoch's table."""
+        r = i * self.n_levels
+        return int(params[r, FK.PARAM_N_SUB]), int(params[r, FK.PARAM_WIDTH])
+
+    def _window_parity(self, buf: _WindowBuffer, params: np.ndarray,
+                       e_count: int) -> List[List[torch.Tensor]]:
+        """Per-epoch, per-group XOR parity over the members' live blocks:
+        ``[epoch][group] -> (max_i L * n_i * w_i,)`` int32 on the device,
+        each member's ``(L, n_i, w_i)`` block flattened and zero-padded to
+        the group's longest.  Counters are exact integers below 2^24, so
+        the f32 -> int32 cast is exact, and XOR neither rounds nor
+        overflows; dead members' rows are zeros and XOR away."""
+        L = self.n_levels
+        per_group = []
+        for members in self.parity_groups:
+            blocks = [buf.block(slice(None), int(i) * L, L,
+                                *self._block_shape(params, int(i)))
+                      .to(torch.int32).reshape(e_count, -1)
+                      for i in members]
+            acc = torch.zeros((e_count, max(b.shape[1] for b in blocks)),
+                              dtype=torch.int32, device=self.device)
+            for b in blocks:
+                acc[:, :b.shape[1]] ^= b
+            per_group.append(acc)
+        return [[acc[e] for acc in per_group] for e in range(e_count)]
+
+    def frag_live(self, epoch: int) -> Optional[np.ndarray]:
+        """(n_frags,) bool fragment liveness of a processed epoch, or None
+        when no failure touched it (every fragment live)."""
+        live = self._row_live.get(epoch)
+        return None if live is None else live[::self.n_levels]
+
+    def is_live(self, sw: int, epoch: int) -> bool:
+        """Is switch ``sw``'s cell of ``epoch`` a genuine observation (not
+        dead, not lost, or recovered since)?"""
+        live = self.frag_live(epoch)
+        return live is None or bool(live[self._frag_pos[sw]])
+
+    def recoverable(self, epochs: Optional[Sequence[int]] = None,
+                    ) -> Dict[int, List[int]]:
+        """The lost cells XOR parity can rebuild: ``{epoch: [switch]}``.
+        A lost cell is recoverable when its fragment is in a parity group,
+        the epoch's parity was taken, and no other member of the group is
+        lost in that epoch (dead members hold zeros and do not block)."""
+        out: Dict[int, List[int]] = {}
+        for e in (sorted(self._lost) if epochs is None else epochs):
+            lost = self._lost.get(e)
+            if not lost or e not in self._parity:
+                continue
+            for i in sorted(lost):
+                gi = self._group_of.get(i)
+                if gi is None:
+                    continue
+                if any(j != i and j in lost for j in self.parity_groups[gi]):
+                    continue
+                out.setdefault(e, []).append(self.frag_order[i])
+        return out
+
+    def recover(self, epochs: Optional[Sequence[int]] = None,
+                ) -> Dict[int, List[int]]:
+        """Rebuild every recoverable lost cell from XOR parity and patch it
+        into the window, in place: for fragment ``i`` of group ``G`` at
+        epoch ``e``, ``C_i = parity[e][G] ^ (the other members' blocks)``,
+        cropped to ``(L, n_i, w_i)`` — bit-identical to the counters before
+        the loss.  Recovered rows become live again, for the device plane
+        and for the record views.  Returns what was recovered,
+        ``{epoch: [switch]}``; the other lost cells stay masked."""
+        recovered: Dict[int, List[int]] = {}
+        L = self.n_levels
+        for e, sws in self.recoverable(epochs).items():
+            buf, e_idx = self._window_bufs[e]
+            params = self._params_log[e]
+            patches = []
+            for sw in sws:
+                i = self._frag_pos[sw]
+                members = self.parity_groups[self._group_of[i]]
+                acc = self._parity[e][self._group_of[i]].clone()
+                for j in members:
+                    if j != i:
+                        b = buf.block(e_idx, int(j) * L, L,
+                                      *self._block_shape(params, int(j)))
+                        b = b.to(acc.device, torch.int32).reshape(-1)
+                        acc[:b.numel()] ^= b
+                n, w = self._block_shape(params, i)
+                patches.append((i, acc[:L * n * w].reshape(L, n, w)))
+            for i, counters in patches:
+                buf.patch(e_idx, i * L, counters)
+                self._row_live[e][i * L:(i + 1) * L] = True
+                self._lost[e].discard(i)
+                recovered.setdefault(e, []).append(self.frag_order[i])
+        return recovered
 
     def point_query(self, epoch: int, keys: np.ndarray,
                     path: Optional[Sequence[int]] = None, level: int = 0,
@@ -772,14 +1055,53 @@ class FleetEpochRunner:
         return buf.host_epoch(e_idx)
 
     def _liveness_sels(self, epochs: Sequence[int],
-                       failures: str) -> List[int]:
-        """Churn-policy front end of the query entry points.  No churn is
-        ported yet, so every policy sees every fragment live and no epoch
-        is blind (no extrapolation scale)."""
+                       base: Optional[np.ndarray], failures: str):
+        """Churn front end of the window query entry points: intersect the
+        structural row selection ``base`` with each epoch's liveness, drop
+        the blind epochs (no live selected row) and return ``(epochs,
+        sel_by_epoch, scale)``.
+
+        ``sel_by_epoch`` is None when no failure touched a queried epoch;
+        ``scale`` is the blind-epoch extrapolation E / E_observable.
+        ``"recover"`` first rebuilds the recoverable lost cells, then
+        masks.  ``"oblivious"`` keeps the dead and lost rows, but not the
+        dead switches of per-epoch runs, which exported no record, and
+        scales nothing.  Raises ``ValueError`` for an unknown policy, or
+        when every epoch is blind under ``"mask"``."""
         if failures not in ("oblivious", "mask", "recover"):
             raise ValueError(f"unknown failures policy {failures!r}; "
                              "expected 'oblivious', 'mask' or 'recover'")
-        return list(epochs)
+        epochs = list(epochs)
+        if failures == "recover":
+            self.recover(epochs)
+            failures = "mask"
+        rows = self._recorded if failures == "oblivious" else self._row_live
+        if not any(e in rows for e in epochs):
+            self.last_observability = {
+                "epochs": len(epochs), "observable_epochs": len(epochs),
+                "scale": 1.0}
+            return epochs, None, 1.0
+        n_rows = len(self.frag_order) * self.n_levels
+        base_arr = np.ones(n_rows, bool) if base is None else base
+        sel_by_e = {e: base_arr & rows[e] if e in rows else base_arr
+                    for e in epochs}
+        if failures == "oblivious":
+            # an epoch with no recorded on-path row adds nothing
+            self.last_observability = {
+                "epochs": len(epochs), "observable_epochs": len(epochs),
+                "scale": 1.0}
+            return [e for e in epochs if sel_by_e[e].any()], sel_by_e, 1.0
+        obs = [e for e in epochs if sel_by_e[e].any()]
+        if not obs:
+            raise ValueError(
+                "window query: no epoch in the window has a live on-path "
+                "fragment; the flow is unobservable under the failure "
+                "schedule")
+        scale = len(epochs) / len(obs)
+        self.last_observability = {
+            "epochs": len(epochs), "observable_epochs": len(obs),
+            "scale": scale}
+        return obs, sel_by_e, scale
 
     def window_query(self, epochs: Sequence[int], keys: np.ndarray,
                      path: Optional[Sequence[int]] = None, level: int = 0,
@@ -794,24 +1116,81 @@ class FleetEpochRunner:
         ``query.fleet_query_window``.  ``level`` picks the UnivMon level
         rows (0 = frequency); ``single_hop`` applies the §4.4
         second-subepoch average on mitigation rows.
+
+        ``failures`` is the churn policy: ``"mask"`` keeps each epoch's
+        live on-path rows only and extrapolates the blind epochs (no live
+        on-path row) from the others by E / E_observable; ``"recover"``
+        first rebuilds the recoverable lost cells from parity
+        (``recover``), then masks; ``"oblivious"`` ignores liveness, so
+        the dead rows' zeros enter the min/median.  Without failures in
+        the queried epochs the three agree.
         """
+        keys = np.asarray(keys, np.uint32)
+        return self.window_query_groups(
+            epochs, keys, [(path, np.arange(len(keys)))], level=level,
+            single_hop=single_hop, failures=failures)
+
+    def window_query_groups(self, epochs: Sequence[int], keys: np.ndarray,
+                            groups: Sequence[Tuple[Optional[Sequence[int]],
+                                                   np.ndarray]],
+                            level: int = 0, single_hop: bool = False,
+                            failures: str = "mask") -> np.ndarray:
+        """``window_query`` for several paths at once: ``groups`` lists
+        ``(path, idxs)``, the keys ``keys[idxs]`` travelling ``path``.
+        Each resident window is answered by one gather over its row
+        groups for ``QUERY_CHUNK`` keys at a time, whatever their paths:
+        each key merges the live rows of its own path (§4.3 Step 1), an
+        epoch blind to that path adds nothing, and the E / E_observable
+        scale is the path's.  Returns ``(len(keys),)`` estimates, those
+        ``window_query`` gives each group (0 for keys in no group)."""
         from . import query as Q
 
         keys = np.asarray(keys, np.uint32)
-        sel = self._row_sel(path, level)
-        epochs = self._liveness_sels(epochs, failures)
-        device_groups, host_epochs = self._route_epochs(epochs)
+        epochs = list(epochs)
+        if failures == "recover":
+            self.recover(epochs)
+            failures = "mask"
+        col = {e: i for i, e in enumerate(epochs)}
+        n_rows = len(self.frag_order) * self.n_levels
+        # (G, E, R): the rows each group's keys merge in each epoch
+        table = np.zeros((len(groups), len(epochs), n_rows), bool)
+        scales = np.ones(len(groups))
+        for g, (path, _) in enumerate(groups):
+            base = self._row_sel(path, level)
+            es, sel_by_e, scales[g] = self._liveness_sels(epochs, base,
+                                                          failures)
+            for e in es:
+                table[g, col[e]] = (sel_by_e[e] if sel_by_e is not None
+                                    else True if base is None else base)
+            if failures != "oblivious" and not table[g].any():
+                raise ValueError(f"window query: path {path} selects no "
+                                 "row of the fleet")
+        order = np.concatenate([np.asarray(i, np.int64) for _, i in groups]
+                               or [np.zeros(0, np.int64)])
+        gid = np.repeat(np.arange(len(groups)), [len(i) for _, i in groups])
+        ks = keys[order]
+        est = np.zeros(len(ks))
+        device_groups, host_epochs = self._route_epochs(
+            [e for e in epochs if table[:, col[e]].any()])
+        for stack, es in device_groups:
+            sel = table[:, [col[e] for e in es]]
+            params = [self._params_log[e] for e in es]
+            for s in range(0, len(ks), QUERY_CHUNK):
+                sl = slice(s, s + QUERY_CHUNK)
+                est[sl] += Q.fleet_query_window_device(
+                    stack, params, ks[sl], self.kind, frag_sel=sel,
+                    single_hop=single_hop, key_group=gid[sl])
+        for g in range(len(groups)) if host_epochs else ():
+            hs = [e for e in host_epochs if table[g, col[e]].any()]
+            if hs:
+                mine = gid == g
+                est[mine] += Q.fleet_query_window(
+                    [self._host_groups(e) for e in hs],
+                    [self._params_log[e] for e in hs], None, ks[mine],
+                    self.kind, frag_sel=[table[g, col[e]] for e in hs],
+                    single_hop=single_hop)
         out = np.zeros(len(keys))
-        for groups, es in device_groups:
-            out += Q.fleet_query_window_device(
-                groups, [self._params_log[e] for e in es], keys, self.kind,
-                frag_sel=sel, single_hop=single_hop)
-        if host_epochs:
-            out += Q.fleet_query_window(
-                [self._host_groups(e) for e in host_epochs],
-                [self._params_log[e] for e in host_epochs],
-                None, keys, self.kind, frag_sel=sel,
-                single_hop=single_hop)
+        out[order] = est * scales[gid]
         return out
 
     def um_level_window_query(self, epochs: Sequence[int], keys: np.ndarray,
@@ -827,8 +1206,9 @@ class FleetEpochRunner:
         over the window's row groups (``kernels.sketch_query
         .um_window_query_device``); epochs whose window the record plane
         has copied to the host go through ``query.fleet_query_window``
-        level by level on its host groups.  ``failures`` is validated as in ``window_query``; no churn
-        is ported, so every fragment is live.
+        level by level on its host groups.  ``failures`` is the churn
+        policy of ``window_query``; liveness is per fragment, so a dead
+        switch masks all its level rows at once.
         """
         from ..kernels.sketch_query import um_window_query_device
         from . import query as Q
@@ -837,22 +1217,31 @@ class FleetEpochRunner:
             raise ValueError("um_level_window_query needs a UnivMon fleet, "
                              f"this one is {self.kind!r}")
         keys = np.asarray(keys, np.uint32)
+        L = self.n_levels
         frag_sel = None
         if path is not None:
             on_path = set(path)
             frag_sel = np.array([sw in on_path for sw in self.frag_order])
-        epochs = self._liveness_sels(epochs, failures)
+        # liveness in row space, projected back to fragments for the
+        # device: a fragment's level rows are all live or all masked
+        row_base = None if frag_sel is None else np.repeat(frag_sel, L)
+        epochs, row_sel_by_e, scale = self._liveness_sels(epochs, row_base,
+                                                          failures)
         device_groups, host_epochs = self._route_epochs(epochs)
-        out = np.zeros((self.n_levels, len(keys)))
+        out = np.zeros((L, len(keys)))
         for groups, es in device_groups:
+            sel = frag_sel if row_sel_by_e is None else \
+                np.stack([row_sel_by_e[e][::L] for e in es])
             out += um_window_query_device(
-                groups, [self._params_log[e] for e in es], keys,
-                self.n_levels, frag_sel=frag_sel)
+                groups, [self._params_log[e] for e in es], keys, L,
+                frag_sel=sel)
         if host_epochs:
             stacks = [self._host_groups(e) for e in host_epochs]
             params = [self._params_log[e] for e in host_epochs]
-            for level in range(self.n_levels):
+            for level in range(L):
+                sel = self._row_sel(path, level) if row_sel_by_e is None \
+                    else [row_sel_by_e[e] & (self.row_levels == level)
+                          for e in host_epochs]
                 out[level] += Q.fleet_query_window(
-                    stacks, params, None, keys, "um",
-                    frag_sel=self._row_sel(path, level))
-        return out
+                    stacks, params, None, keys, "um", frag_sel=sel)
+        return out * scale if scale != 1.0 else out

@@ -4,7 +4,8 @@ update (port of ``repro/core/fragment.py``).
 A fragment is one sketch row (per UnivMon level) hosted at one switch,
 sized to that switch's residual memory; its hash seeds derive from
 ``(frag_id, epoch, role)`` so the query plane can recompute every hash.
-``process_epoch`` is the per-switch numpy update of the ``loop`` backend.
+``process_epoch`` is the per-switch numpy update of the ``loop`` backend;
+``CumulativeFragment`` is the §5 export without counter resets.
 """
 from __future__ import annotations
 
@@ -140,3 +141,37 @@ def process_epoch(cfg: FragmentConfig, epoch: int, n: int,
 
     return EpochRecords(cfg.frag_id, epoch, n, counters, cfg.kind,
                         cfg.mitigation, cfg.base_seed)
+
+
+class CumulativeFragment:
+    """The §5 memory-efficient export: counters are *not* reset at
+    subepoch boundaries, and the controller rebuilds each subepoch record
+    as the difference of consecutive cumulative exports.  One counter
+    array lives in SRAM instead of the double-buffered pair, at the cost
+    of shipping cumulative snapshots; ``export_epoch``'s deltas are
+    exactly the reset-mode ``EpochRecords``."""
+
+    def __init__(self, cfg: FragmentConfig):
+        self.cfg = cfg
+        self._cum: Optional[np.ndarray] = None
+
+    def export_epoch(self, epoch: int, n: int, keys, values, ts,
+                     epoch_start: int, log2_te: int,
+                     single_hop=None) -> EpochRecords:
+        """Process one epoch without resetting; return the delta records."""
+        rec = process_epoch(self.cfg, epoch, n, keys, values, ts,
+                            epoch_start, log2_te, single_hop=single_hop)
+        # the switch's cumulative snapshots: a running sum of every
+        # subepoch so far, carried over from the previous epoch
+        flat = rec.counters.reshape(-1, rec.counters.shape[-1])
+        if self._cum is None or self._cum.shape != flat[0].shape:
+            self._cum = np.zeros_like(flat[0])
+        cum_snapshots = np.cumsum(flat, axis=0) + self._cum
+        self._cum = cum_snapshots[-1].copy()
+        # the controller's delta reconstruction
+        deltas = np.diff(np.concatenate(
+            [(cum_snapshots[0] - flat[0])[None], cum_snapshots], axis=0),
+            axis=0)
+        return EpochRecords(rec.frag_id, rec.epoch, rec.n,
+                            deltas.reshape(rec.counters.shape), rec.kind,
+                            rec.mitigation, rec.base_seed)

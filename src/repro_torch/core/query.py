@@ -290,14 +290,17 @@ def fleet_query_window(stacked_by_epoch: Sequence[np.ndarray],
 def fleet_query_window_device(stack, params_by_epoch, keys: np.ndarray,
                               kind: str,
                               frag_sel: Optional[np.ndarray] = None,
-                              single_hop: bool = False) -> np.ndarray:
+                              single_hop: bool = False,
+                              key_group: Optional[np.ndarray] = None,
+                              ) -> np.ndarray:
     """Device twin of ``fleet_query_window`` on a resident window stack —
     see ``repro_torch.kernels.sketch_query.fleet_window_query_device``."""
     from ..kernels.sketch_query import fleet_window_query_device
 
     return fleet_window_query_device(stack, params_by_epoch, keys, kind,
                                      frag_sel=frag_sel,
-                                     single_hop=single_hop)
+                                     single_hop=single_hop,
+                                     key_group=key_group)
 
 
 # ---------------------------------------------------------------------------

@@ -74,21 +74,25 @@ def _gather_raw(stack: torch.Tensor, pos, col_seeds, sign_seeds, sub_seeds,
 def _masked_merge(raw: torch.Tensor, frag_sel: torch.Tensor, *,
                   kind: str) -> torch.Tensor:
     """§4.3 merge across the row axis (axis 1): min for CMS, masked median
-    otherwise.  ``frag_sel`` is (R,) or (E, R) bool; every epoch keeps at
-    least one selected row (the entry point checks)."""
-    sel = frag_sel if frag_sel.ndim == 2 else frag_sel[None, :]
-    masked = torch.where(sel[:, :, None], raw,
+    otherwise.  ``frag_sel`` is (R,), (E, R) or, per key, (E, R, K) bool.
+    An (epoch, key) that selects no row merges to 0."""
+    sel = frag_sel if frag_sel.ndim > 1 else frag_sel[None, :]
+    sel = sel if sel.ndim == 3 else sel[:, :, None]
+    masked = torch.where(sel, raw,
                          torch.tensor(float("inf"), device=raw.device))
     if kind == "cms":
-        return masked.min(dim=1).values                   # (E, K)
-    # +inf-masked rows sort to the top, so ranks (m-1)//2 and m//2 of the
-    # ascending sort are the two middle *selected* values.
-    srt = masked.sort(dim=1).values
-    m = sel.sum(dim=1)[:, None, None]                     # (E', 1, 1)
-    shape = (srt.shape[0], 1, srt.shape[2])
-    lo = torch.take_along_dim(srt, ((m - 1) // 2).expand(shape), dim=1)
-    hi = torch.take_along_dim(srt, (m // 2).expand(shape), dim=1)
-    return (0.5 * (lo + hi))[:, 0, :]
+        merged = masked.min(dim=1).values                 # (E, K)
+    else:
+        # +inf-masked rows sort to the top, so ranks (m-1)//2 and m//2 of
+        # the ascending sort are the two middle *selected* values.
+        srt = masked.sort(dim=1).values
+        m = sel.sum(dim=1, keepdim=True)                  # (E, 1, 1|K)
+        shape = (srt.shape[0], 1, srt.shape[2])
+        lo = torch.take_along_dim(
+            srt, ((m - 1).clamp(min=0) // 2).expand(shape), dim=1)
+        hi = torch.take_along_dim(srt, (m // 2).expand(shape), dim=1)
+        merged = (0.5 * (lo + hi))[:, 0, :]
+    return torch.where(sel.any(dim=1), merged, torch.zeros_like(merged))
 
 
 def _prep_window_params(groups, params_by_epoch: Sequence[np.ndarray]):
@@ -121,7 +125,9 @@ def _prep_window_params(groups, params_by_epoch: Sequence[np.ndarray]):
 def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
                               keys: np.ndarray, kind: str,
                               frag_sel: Optional[np.ndarray] = None,
-                              single_hop: bool = False) -> np.ndarray:
+                              single_hop: bool = False,
+                              key_group: Optional[np.ndarray] = None,
+                              ) -> np.ndarray:
     """Batched window point query on a resident window.
 
     Args:
@@ -135,8 +141,12 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
       kind: "cs" | "cms" | "um" (um rows are signed CS levels; pass the
         queried level's rows via ``frag_sel``).
       frag_sel: optional (R,) or (E, R) bool on-path row mask; every
-        epoch must select at least one row.
+        epoch must select at least one row.  With ``key_group``, a
+        ``(G, E, R)`` mask, one per key group (e.g. per path).
       single_hop: apply the §4.4 second-subepoch average on PARAM_MIT rows.
+      key_group: optional (K,) indices into ``frag_sel``'s first axis: key
+        ``k`` merges the rows ``frag_sel[key_group[k]]`` selects, and an
+        epoch that selects none of them adds nothing to its sum.
 
     Returns the (K,) float64 window estimates.
     """
@@ -145,22 +155,36 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
               if isinstance(stack, torch.Tensor) else list(stack))
     params, ns, widths = _prep_window_params(groups, params_by_epoch)
     e_count, n_rows = params.shape[:2]
-    frag_sel = (np.ones(n_rows, bool) if frag_sel is None
-                else np.asarray(frag_sel, bool))
-    sel2 = np.atleast_2d(frag_sel)
-    if not sel2.any(axis=1).all():
-        bad = np.flatnonzero(~sel2.any(axis=1))
-        raise ValueError(
-            "fleet_window_query_device: no on-path fragment selected "
-            f"(epoch offsets {bad.tolist()} of {len(params_by_epoch)}) — "
-            "an all-masked merge has no survivor")
+    if key_group is not None:
+        key_group = np.asarray(key_group, np.int64)
+        frag_sel = np.asarray(frag_sel, bool)
+        if frag_sel.shape[1:] != (e_count, n_rows) \
+                or len(key_group) != len(keys):
+            raise ValueError(f"frag_sel {frag_sel.shape} and key_group "
+                             f"{key_group.shape} do not fit {e_count} "
+                             f"epochs of {n_rows} rows and {len(keys)} keys")
+        need = frag_sel[np.unique(key_group)].any(axis=(0, 1))
+    else:
+        frag_sel = (np.ones(n_rows, bool) if frag_sel is None
+                    else np.asarray(frag_sel, bool))
+        sel2 = np.atleast_2d(frag_sel)
+        if not sel2.any(axis=1).all():
+            bad = np.flatnonzero(~sel2.any(axis=1))
+            raise ValueError(
+                "fleet_window_query_device: no on-path fragment selected "
+                f"(epoch offsets {bad.tolist()} of {len(params_by_epoch)}) "
+                "— an all-masked merge has no survivor")
+        need = sel2.any(axis=0)
     if len(keys) == 0:
         return np.zeros(0)
     dev = groups[0][1].device
-    raw = _gather_groups(groups, params, ns, widths, keys, sel2.any(axis=0),
+    raw = _gather_groups(groups, params, ns, widths, keys, need,
                          signed=kind in ("cs", "um"),
                          mitigate=bool(single_hop))
-    merged = _masked_merge(raw, _put(frag_sel, dev, torch.bool), kind=kind)
+    sel = _put(frag_sel, dev, torch.bool)
+    if key_group is not None:
+        sel = sel[_put(key_group, dev)].permute(1, 2, 0)     # (E, R, K)
+    merged = _masked_merge(raw, sel, kind=kind)
     # (K,) estimates: the only counter-derived bytes that leave the device
     return merged.to(torch.float64).sum(dim=0).cpu().numpy()
 

@@ -1,8 +1,9 @@
 """On-card tests of the port's CUDA kernels (B1 ragged fleet update, B2
 single-fragment update, B3 dense fleet update) against their plain
 PyTorch versions, and of the torch ops that run on the card (the UnivMon
-query plane, the aggregated sketches) against the CPU.  They need an NVIDIA GPU and ``nvcc``; elsewhere they skip with
-the reason.  Run them on the card with ``python -m pytest -q -m cuda
+query plane, the aggregated sketches) against the CPU, and of churn on the
+card (dead rows exactly zero out of B1 and B3, parity recovery).  They
+need an NVIDIA GPU and ``nvcc``; elsewhere they skip with the reason.  Run them on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.
 
 This file imports only the port (no JAX), so it also runs where JAX is
@@ -328,3 +329,101 @@ def test_aggregated_sketches_on_card(cuda_device):
                       values)
     want = S.um_update(spec, S.um_make_counters(spec, "cpu"), keys, values)
     assert torch.equal(got.cpu(), want)
+
+
+def _churn_streams(epoch, n_sw=6, log2_te=10, n_pkts=3000):
+    from repro_torch.core.disketch import SwitchStream
+
+    rng = np.random.default_rng(100 + epoch)
+    out = {}
+    for sw in range(n_sw):
+        keys = rng.integers(0, 500, n_pkts).astype(np.uint32)
+        ts = (epoch << log2_te) + np.sort(rng.integers(0, 1 << log2_te,
+                                                       n_pkts))
+        out[sw] = SwitchStream(keys, np.ones(n_pkts, np.int64), ts)
+    return out
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_dead_rows_exactly_zero_on_card(cuda_device, layout):
+    """A dead switch's segment is value 0: B1 (ragged) and B3 (dense) leave
+    its rows exactly zero on the card, launch as usual, and the live rows
+    and records equal the plain versions' on the CPU."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.simulator import FailureEvent
+
+    mems = {sw: 1024 << (sw % 3) for sw in range(6)}
+    systems = [DiSketchSystem(mems, "cs", rho_target=4.0, log2_te=10,
+                              device=dev, fleet_kwargs={
+                                  "layout": layout, "keep_stacked": True})
+               for dev in (cuda_device, "cpu")]
+    events = {1: [FailureEvent(1, 2, "fail"), FailureEvent(1, 4, "fail")],
+              3: [FailureEvent(3, 4, "recover")]}
+    launches = FK.fleet_update_ragged if layout == "ragged" \
+        else FK.fleet_update
+    before = launches.launches
+    for e in range(4):
+        for s in systems:
+            s.run_epoch(e, _churn_streams(e), events=events.get(e))
+    assert launches.launches > before
+    card, cpu = systems
+    assert card.n_log == cpu.n_log and card._dead_at == cpu._dead_at
+    for e in range(4):
+        assert sorted(card.records[e]) == sorted(cpu.records[e])
+        for sw in cpu.records[e]:
+            np.testing.assert_array_equal(card.records[e][sw].counters,
+                                          cpu.records[e][sw].counters)
+        buf = card.fleet._window_bufs[e][0]
+        assert buf.resident
+        for sw in card._dead_at.get(e, ()):
+            g, j = buf._where[card.fleet._frag_pos[sw]]
+            row = buf.device()[g][1][0, j]
+            assert row.is_cuda and torch.equal(row, torch.zeros_like(row))
+    keys = np.arange(500, dtype=np.uint32)
+    for failures in ("oblivious", "mask"):
+        np.testing.assert_allclose(
+            card.query_flows(keys, [(1, 2, 4)] * 500, range(4),
+                             merge="fragment", failures=failures),
+            cpu.query_flows(keys, [(1, 2, 4)] * 500, range(4),
+                            merge="fragment", failures=failures),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_recover_round_trip_on_card(cuda_device):
+    """A death at window offset 2 loses two epochs; the parity taken on
+    the card before the loss rebuilds them bit for bit in the resident
+    groups, and the recovered answers equal the CPU's."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.simulator import FailureEvent
+
+    mems = {sw: 256 << sw for sw in range(6)}
+    kw = dict(rho_target=2.0, log2_te=10)
+    lossy = DiSketchSystem(mems, "cms", device=cuda_device, fleet_kwargs={
+        "parity_groups": [[0, 1, 2], [3, 4, 5]]}, **kw)
+    cpu = DiSketchSystem(mems, "cms", device="cpu", fleet_kwargs={
+        "parity_groups": [[0, 1, 2], [3, 4, 5]]}, **kw)
+    for s in (lossy, cpu):
+        s.run_window(0, [_churn_streams(e) for e in range(4)])
+        s.run_window(4, [_churn_streams(e) for e in range(4, 8)],
+                     events_by_epoch=[[], [], [FailureEvent(6, 3, "fail")],
+                                      []])
+    fleet = lossy.fleet
+    buf = fleet._window_bufs[4][0]
+    assert len(buf.device()) > 1                # members in several groups
+    assert fleet.recoverable() == {4: [3], 5: [3]}
+    assert all(p.is_cuda for e in range(4, 8) for p in fleet._parity[e])
+    g, j = buf._where[3]
+    assert not buf.device()[g][1][:2, j].any()          # epochs 4 and 5
+    keys = np.arange(500, dtype=np.uint32)
+    paths = [(2, 3)] * 500
+    got = lossy.query_flows(keys, paths, range(4, 8), merge="fragment",
+                            failures="recover")
+    assert buf.resident and fleet.recoverable() == {}
+    np.testing.assert_allclose(
+        got, cpu.query_flows(keys, paths, range(4, 8), merge="fragment",
+                             failures="recover"), rtol=1e-6, atol=1e-6)
+    for e in range(4, 8):
+        for sw in mems:
+            np.testing.assert_array_equal(lossy.records[e][sw].counters,
+                                          cpu.records[e][sw].counters)
+    assert lossy.records[4][3].counters.any()

@@ -272,7 +272,9 @@ def test_fleet_window_path_matches_reference(scenario, reference_engine,
 
 def test_unported_options_raise():
     """What the port does not have yet raises instead of running another
-    path: device meshes, XOR parity groups and churn events."""
+    path: device meshes.  (Churn events and XOR parity groups are ported
+    and held by ``tests/test_torch_churn.py``; a malformed event still
+    raises before anything is dispatched.)"""
     mems = {0: 4096, 1: 8192}
     for backend in ("fleet", "loop"):
         with pytest.raises(NotImplementedError, match="mesh"):
@@ -281,13 +283,13 @@ def test_unported_options_raise():
     system = DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
                             device="cpu")
     empty = {}
-    with pytest.raises(NotImplementedError, match="churn"):
+    with pytest.raises(AttributeError):
         system.run_epoch(0, empty, events=[object()])
-    with pytest.raises(NotImplementedError, match="churn"):
-        system.run_window(0, [empty], events_by_epoch=[[object()]])
+    with pytest.raises(AttributeError):
+        system.run_window(0, [empty, empty],
+                          events_by_epoch=[[object()], []])
     frags = {0: TCfg(0, "cs", 4096)}
-    for kw in (dict(mesh=object()), dict(parity_groups=[[0]])):
-        with pytest.raises(NotImplementedError):
-            FleetEpochRunner(frags, LOG2_TE, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        FleetEpochRunner(frags, LOG2_TE, device="cpu", mesh=object())
     # nothing was dispatched by the refused calls
     assert system.records == {} and system.n_log == []
