@@ -34,13 +34,21 @@ full-scale setting:
   parity groups of 5, dead segments masked to value 0 in B1 and the
   queries under "oblivious", "mask" and "recover" on the device; and the
   per-epoch path under the same schedule (ragged B1, dense B3,
-  subepoch-merge queries).
+  subepoch-merge queries);
+* the versioned control plane (``runtime.control.VersionedControlPlane``):
+  ``Replayer.run(plane, window=8)`` for cs over lossless channels, held to
+  the window path's plane-free run group by group, and for cs and cms
+  over lossy channels (drops, duplicates, reorders), held to twins run at
+  the applied configs; then ``Replayer.run(plane, failures=...)`` per
+  epoch for cs under the churn schedule over the lossy channels, where
+  the resource pressure reaches the switch agents (NACKs, clamps).
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
 kernels, that the dense, ragged and loop counters are bit-identical, and
 that the answers are right: the RMSEs and entropies are pinned to the JAX
-reference's values at this setting.
+reference's values at this setting, and so are the control plane's
+applied configs, stale epochs and protocol counters.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -144,6 +152,65 @@ CHURN_N_LOG_PIN = {"window cs": "c14bdbb7a67aabb1",
 CHURN_DEAD = (17, 25, [1, 3, 4, 12, 19])
 CHURN_LOST = {16: [1, 3, 4, 12, 19]}
 CHURN_RECOVERABLE = {16: [12, 19]}
+# The versioned control plane (scripts/reference_pins.py control): the
+# reference's VersionedControlPlane around its loop backend over the lossy
+# channels of lossy_ctrl() below, with run_window called on it directly for
+# the windows of 8 (its loop backend then runs a window's epochs at frozen
+# ns and the plane walks the window's PEBs once, as the fleet window does),
+# and its Replayer.run per epoch under churn_schedule().  "applied" is the
+# n_log_digest() of applied_log, "clamps" the json_digest() of clamp_log,
+# "stats" the plane's stats() after the replay (it holds no times),
+# "stale" stale_epochs(), "stale_config" the last_observability stamp of
+# the query, "rmse" the RMSE of all 5-hop flows: over the 32 epochs with
+# merge="fragment" for the windows, over CHURN_EPOCHS with the subepoch
+# merge under failures="mask" per epoch.  "window cs lossless" runs over
+# the default (lossless) channels.
+CONTROL_PIN = {
+    "window cs lossless": dict(
+        applied="6528876c9888783e", stale=[],
+        stats={"now": 8, "n_directives": 8, "n_acks_rx": 12,
+               "n_stale_acks": 0, "n_nacks_tx": 0, "n_outstanding": 2,
+               "n_stale_epochs": 0, "n_clamps": 0, "max_version_lag": 1,
+               "channel": {"n_sent": 16, "n_dropped": 0, "n_dup": 0,
+                           "n_delivered": 14, "pending": 2},
+               "ack_channel": {"n_sent": 14, "n_dropped": 0, "n_dup": 0,
+                               "n_delivered": 12, "pending": 2}},
+        rmse=0.5982554646551216),
+    "window cs": dict(
+        applied="00c00434313f5533", stale=list(range(8, 32)),
+        stats={"now": 8, "n_directives": 5, "n_acks_rx": 6,
+               "n_stale_acks": 1, "n_nacks_tx": 0, "n_outstanding": 2,
+               "n_stale_epochs": 24, "n_clamps": 0, "max_version_lag": 1,
+               "channel": {"n_sent": 13, "n_dropped": 3, "n_dup": 3,
+                           "n_delivered": 10, "pending": 3},
+               "ack_channel": {"n_sent": 10, "n_dropped": 3, "n_dup": 1,
+                               "n_delivered": 6, "pending": 2}},
+        rmse=0.5927259015359663),
+    "window cms": dict(
+        applied="ec5aa5f81658095e",
+        stale=list(range(8, 16)) + list(range(24, 32)),
+        stats={"now": 8, "n_directives": 2, "n_acks_rx": 2,
+               "n_stale_acks": 1, "n_nacks_tx": 0, "n_outstanding": 1,
+               "n_stale_epochs": 16, "n_clamps": 0, "max_version_lag": 1,
+               "channel": {"n_sent": 6, "n_dropped": 1, "n_dup": 1,
+                           "n_delivered": 5, "pending": 1},
+               "ack_channel": {"n_sent": 5, "n_dropped": 2, "n_dup": 1,
+                               "n_delivered": 2, "pending": 2}},
+        rmse=18.615486215943204),
+    "epoch cs": dict(
+        applied="2d671fd55f5be7d8", clamps="9cf958636110fcc1", n_clamps=41,
+        stale=list(range(1, 18)) + list(range(19, 32)),
+        stale_config=[16, 17, 19, 20, 21, 22, 23],
+        stats={"now": 64, "n_directives": 184, "n_acks_rx": 619,
+               "n_stale_acks": 136, "n_nacks_tx": 335, "n_outstanding": 14,
+               "n_stale_epochs": 30, "n_clamps": 41, "max_version_lag": 2,
+               "channel": {"n_sent": 433, "n_dropped": 173, "n_dup": 52,
+                           "n_delivered": 304, "pending": 8},
+               "ack_channel": {"n_sent": 639, "n_dropped": 126,
+                               "n_dup": 113, "n_delivered": 619,
+                               "pending": 7}},
+        rmse=14.060080943950874),
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -809,6 +876,13 @@ def main_path(dev, sc):
         if kind == "cs":
             result["timing"] = kernel_timing(
                 _window_groups(system.fleet, rep, WINDOW), dev)
+            # for the control phase: this plane-free run's groups, before
+            # the host copy below releases window 8's
+            result["cs_groups"] = [
+                [(rows, c.cpu()) for rows, c in
+                 fleet._window_bufs[w0][0].device()]
+                for w0 in range(0, N_EPOCHS, WINDOW)]
+            result["cs_n_log"] = list(system.n_log)
             host_copy(system, keys, paths, plain_host)
         del system, fleet, bufs, buf, plain_host
     profile_replay(mems, rep)
@@ -1467,7 +1541,8 @@ def _churn_window(dev, sc, kind, groups):
     assert counts["fleet_ragged"] == expected > 0, (counts, expected)
     assert counts["fleet_dense"] == counts["sketch_update"] == 0, counts
     # the control: n trajectory, dead epochs, lost and recoverable cells
-    _pinned_digest(f"window {kind}", system.n_log)
+    _pinned_digest(f"window {kind} n trajectory", system.n_log,
+                   CHURN_N_LOG_PIN[f"window {kind}"])
     d0, d1, victims = CHURN_DEAD
     assert system._dead_at == {e: frozenset(victims)
                                for e in range(d0, d1)}, system._dead_at
@@ -1622,11 +1697,10 @@ def _churn_truth(sc):
                        minlength=len(wl.keys))[wl.path_len == 5]
 
 
-def _pinned_digest(what, n_log):
+def _pinned_digest(what, n_log, want):
+    """Fail unless the n trajectory ``n_log`` has the pinned digest."""
     got = n_log_digest(n_log)
-    assert got == CHURN_N_LOG_PIN[what], \
-        f"{what} n trajectory {got} != the reference's " \
-        f"{CHURN_N_LOG_PIN[what]}"
+    assert got == want, f"{what} {got} != the reference's {want}"
 
 
 def _churn_epoch(dev, sc):
@@ -1654,7 +1728,8 @@ def _churn_epoch(dev, sc):
             counts[name], counts
         runs[layout] = (system, counts, host_s, dev_ms)
     ragged, dense = runs["ragged"][0], runs["dense"][0]
-    _pinned_digest("epoch cs", ragged.n_log)
+    _pinned_digest("epoch cs n trajectory", ragged.n_log,
+                   CHURN_N_LOG_PIN["epoch cs"])
     d0, d1, victims = CHURN_DEAD
     assert ragged._dead_at == {e: frozenset(victims) for e in range(d0, d1)}
     assert dense.n_log == ragged.n_log and dense._dead_at == ragged._dead_at
@@ -1740,6 +1815,238 @@ def churn_phase(dev, sc):
     res["ragged"] += ragged
     res["dense"] += dense
     res["max_abs_err"] = max(res["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    return res
+
+
+def lossy_ctrl():
+    """The control phase's lossy channels (the reference tests'
+    ``lossy_ctrl(seed=17, p_drop=0.4)``): directives lose 40%, duplicate
+    20% and reorder 30% of copies; ACKs lose 20% and duplicate 20%; both
+    add 0 or 1 round of delay."""
+    from repro_torch.net.channel import LossyChannel
+
+    return (LossyChannel(p_drop=0.4, p_dup=0.2, p_reorder=0.3, delay=(0, 1),
+                         seed=17),
+            LossyChannel(p_drop=0.2, p_dup=0.2, delay=(0, 1), seed=18))
+
+
+def json_digest(obj):
+    """A short digest of a JSON-able object, as ``scripts/reference_pins.py``
+    computes it (the control plane's ``clamp_log``)."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def _planed(sc, kind, channels, window=WINDOW, failures=None, **fleet_kw):
+    """A replay of ``kind`` under a ``VersionedControlPlane`` with the
+    launch counters reset just before and read just after, and each
+    ``_post_dispatch`` (the controller with its protocol rounds) timed:
+    ``(system, plane, counts, host s, timed calls)``."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.runtime import VersionedControlPlane
+
+    system = DiSketchSystem(sc["mems"], kind, rho_target=RHO[kind],
+                            log2_te=LOG2_TE, fleet_kwargs=fleet_kw or None)
+    plane = VersionedControlPlane(system, *channels)
+    post = _Timed(plane._post_dispatch)
+    plane._post_dispatch = post
+    counts, host_s, _ = _replay(sc["rep"], plane, window=window,
+                                failures=failures)
+    assert counts["fleet_ragged"] > 0 and sum(counts.values()) == \
+        counts["fleet_ragged"], counts
+    assert len(post.calls) == len(plane.applied_log) == -(-N_EPOCHS // window)
+    return system, plane, counts["fleet_ragged"], host_s, post
+
+
+def _resident_groups(fleet):
+    """The row groups of every window of a window-8 replay."""
+    return [fleet._window_bufs[w0][0].device()
+            for w0 in range(0, N_EPOCHS, WINDOW)]
+
+
+def _groups_equal(what, got, want):
+    """Every row group of every window ``torch.equal``; ``got`` on the
+    card, ``want`` on the card or the host.  Returns the groups' count."""
+    import torch
+
+    n = 0
+    for w, (gw, ww) in enumerate(zip(got, want, strict=True)):
+        assert len(gw) == len(ww), f"{what}: window {w} group count"
+        for (rows, c), (rows_w, c_w) in zip(gw, ww):
+            assert c.is_cuda and np.array_equal(rows, rows_w), \
+                f"{what}: window {w} rows"
+            assert torch.equal(c, c_w.to(c.device)), \
+                f"{what}: window {w} counters differ"
+            n += 1
+    return n
+
+
+def _held_to_pin(what, plane, pin, err):
+    """The plane's applied configs, stale epochs, ``stats()`` and RMSE
+    against the reference's (``CONTROL_PIN``)."""
+    _pinned_digest(f"{what} applied_log", plane.applied_log, pin["applied"])
+    assert plane.stale_epochs() == pin["stale"], \
+        f"{what} stale epochs {plane.stale_epochs()} != {pin['stale']}"
+    assert plane.stats() == pin["stats"], \
+        f"{what} stats {plane.stats()} != the reference's {pin['stats']}"
+    _pinned(f"{what} RMSE", err, pin["rmse"], PIN_RTOL)
+
+
+def _plane_line(what, plane, post, host_s, launches, st, extra=""):
+    """The control lines of the log: host times, and the rounds and
+    messages of the replay (``st``, its ``stats()``)."""
+    ms = [1e3 * t for t, _ in post.calls]
+    _log(f"control {what}: replay host {host_s:.2f} s, B1 launches "
+         f"{launches}; controller (_post_dispatch with its "
+         f"{plane.steps_per_dispatch} protocol rounds) {np.mean(ms):.3f} ms "
+         f"a dispatch (max {max(ms):.3f}, {len(ms)} dispatches, "
+         f"{sum(ms):.2f} ms a replay); {st['now']} rounds, "
+         f"{st['channel']['n_sent'] + st['ack_channel']['n_sent']} messages "
+         f"({st['channel']['n_sent']} directive copies sent, "
+         f"{st['ack_channel']['n_sent']} ACKs and NACKs), "
+         f"{st['n_directives']} directives issued, "
+         f"{st['n_stale_epochs']} stale epochs, {st['n_clamps']} clamps"
+         f"{extra}")
+
+
+def control_phase(dev, sc, main):
+    """The versioned control plane at the §6.1 setting: cs window 8 over
+    lossless channels against the window phase's plane-free run (``main``),
+    cs and cms window 8 over the lossy channels against twins pinned to
+    the applied configs, and cs per epoch under ``churn_schedule()`` over
+    the lossy channels, each held to the reference's plane
+    (``CONTROL_PIN``).  Returns what the kernel line needs."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+
+    rep, mems = sc["rep"], sc["mems"]
+    keys, truth, paths = sc["keys"], sc["truth"], sc["paths"]
+    epochs = list(range(N_EPOCHS))
+    res = {"ragged": 0, "max_abs_err": 0.0}
+
+    # 1. lossless: the plane is the oracle loop, one dispatch late
+    system, plane, launches, host_s, post = _planed(sc, "cs", ())
+    res["ragged"] += launches
+    assert plane.n_directives > 0 and plane.stale_epochs() == []
+    n_groups = _groups_equal("lossless cs window 8",
+                             _resident_groups(system.fleet),
+                             main.pop("cs_groups"))
+    free = main.pop("cs_n_log")
+    for d in range(N_EPOCHS // WINDOW):
+        start = free[d * WINDOW - 1] if d else {sw: 1 for sw in mems}
+        assert plane.applied_log[d] == start, d
+        assert plane.intent_log[d] == free[(d + 1) * WINDOW - 1], d
+    assert system.n_log == [plane.applied_log[e // WINDOW] for e in epochs]
+    q0 = time.perf_counter()
+    err = rmse(plane.query_flows(keys, paths, epochs, merge="fragment"),
+               truth)
+    q_s = time.perf_counter() - q0
+    _pinned("control lossless cs window 8 RMSE", err,
+            RMSE_PIN[("cs", "window 8")], PIN_RTOL)
+    _held_to_pin("control window cs lossless", plane,
+                 CONTROL_PIN["window cs lossless"], err)
+    _plane_line("cs window 8 lossless", plane, post, host_s, launches,
+                plane.stats(), f"; {n_groups} resident groups of the 4 "
+                f"windows == the plane-free run's, n at every window "
+                f"boundary == its n_log, query {q_s:.2f} s, RMSE {err!r} "
+                f"(RMSE_PIN's, and the reference plane's)")
+    del system, plane
+
+    # 2. lossy windows: stale configs, counters of the applied configs
+    for kind in ("cs", "cms"):
+        system, plane, launches, host_s, post = _planed(sc, kind,
+                                                        lossy_ctrl())
+        res["ragged"] += launches
+        assert plane.stale_epochs(), f"{kind}: nothing ran stale"
+        twin = DiSketchSystem(mems, kind, rho_target=RHO[kind],
+                              log2_te=LOG2_TE)
+        twin.control_external = True
+        order = twin.fleet.frag_order
+        for d, e0 in enumerate(range(0, N_EPOCHS, WINDOW)):
+            twin.ns.update(plane.applied_log[d])
+            es = range(e0, min(e0 + WINDOW, N_EPOCHS))
+            twin.run_window(e0, [rep.epoch_stream(e) for e in es],
+                            packets=[rep.epoch_packet(e, order) for e in es])
+        n_groups = _groups_equal(f"lossy {kind} window 8",
+                                 _resident_groups(system.fleet),
+                                 _resident_groups(twin.fleet))
+        assert system.n_log == twin.n_log
+        del twin
+        q0 = time.perf_counter()
+        err = rmse(plane.query_flows(keys, paths, epochs, merge="fragment"),
+                   truth)
+        q_s = time.perf_counter() - q0
+        assert plane.last_observability["stale_config"] == \
+            plane.stale_epochs()
+        _held_to_pin(f"control window {kind}", plane,
+                     CONTROL_PIN[f"window {kind}"], err)
+        st = plane.stats()
+        d0 = time.perf_counter()
+        rounds = plane.drain()
+        drain_ms = 1e3 * (time.perf_counter() - d0)
+        lag = plane.version_lag()
+        assert set(lag.values()) == {0}, lag
+        _plane_line(f"{kind} window 8 lossy", plane, post, host_s, launches,
+                    st, f"; stale epochs {plane.stale_epochs()}; "
+                    f"{n_groups} resident groups == a twin run at the "
+                    f"applied configs; query {q_s:.2f} s, RMSE {err!r}; "
+                    f"applied_log, stale epochs, stats() and RMSE the "
+                    f"reference plane's (pinned); drained at round {rounds} "
+                    f"in {drain_ms:.2f} ms, every version lag 0")
+        del system, plane
+        torch.cuda.empty_cache()
+
+    # 3. per epoch under churn: the pressure reaches the agents
+    system, plane, launches, host_s, post = _planed(
+        sc, "cs", lossy_ctrl(), window=1, failures=churn_schedule(),
+        keep_stacked=True)
+    res["ragged"] += launches
+    pin = CONTROL_PIN["epoch cs"]
+    st = plane.stats()
+    assert st["n_nacks_tx"] > 0 and plane.clamp_log, st
+    assert json_digest(plane.clamp_log) == pin["clamps"] and \
+        len(plane.clamp_log) == pin["n_clamps"], \
+        f"clamp_log {json_digest(plane.clamp_log)} != the reference's"
+    d0, d1, victims = CHURN_DEAD
+    assert system._dead_at == {e: frozenset(victims) for e in range(d0, d1)}
+    es, truth_es = list(CHURN_EPOCHS), _churn_truth(sc)
+    q0 = time.perf_counter()
+    est = plane.query_flows(keys, paths, es, failures="mask")
+    q_s = time.perf_counter() - q0
+    assert est.shape == keys.shape and np.isfinite(est).all()
+    stale_config = plane.last_observability["stale_config"]
+    assert stale_config == pin["stale_config"], stale_config
+    err = rmse(est, truth_es)
+    _held_to_pin("control epoch cs", plane, pin, err)
+    # B1 against its plain version on the first stale epoch, and on the
+    # first stale epoch with dead switches
+    fleet = system.fleet
+    checked = sorted({plane.stale_epochs()[0],
+                      next(e for e in plane.stale_epochs() if e >= d0)})
+    for e in checked:
+        for (args, kw), (_, got) in zip(
+                _window_groups(fleet, rep, e, n_epochs=1,
+                               dead_at=system._dead_at),
+                fleet._window_bufs[e][0].device(), strict=True):
+            plain = FK.fleet_update_ragged_ref(*_to_device(args, dev),
+                                               **kw).reshape(got.shape)
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     float((got - plain).abs().max()))
+            assert torch.equal(got, plain), f"epoch {e}: B1 != plain"
+    _plane_line("cs per-epoch lossy under churn_schedule()", plane, post,
+                host_s, launches, st,
+                f" ({st['n_nacks_tx']} NACKs beaconed, "
+                f"{st['n_stale_acks']} stale ACKs dropped); stale_config of "
+                f"epochs {es[0]}-{es[-1]} {stale_config}; subepoch-merge "
+                f"query under mask {q_s:.2f} s, RMSE {err!r}; applied_log, "
+                f"clamp_log, stats(), stale epochs and RMSE the reference "
+                f"plane's (pinned); B1 == plain on epochs {checked} "
+                f"(max_abs_err {res['max_abs_err']})")
+    del system, plane
     torch.cuda.empty_cache()
     return res
 
@@ -2023,14 +2330,16 @@ def main() -> int:
         um_e = _phase(univmon_epoch, dev, sc)
         _phase(aggregated_phase, dev, sc)
         churn = _phase(churn_phase, dev, sc)
+        ctrl = _phase(control_phase, dev, sc, res)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
             ("fleet_ragged", "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
-             + um_e["ragged"] + churn["ragged"],
+             + um_e["ragged"] + churn["ragged"] + ctrl["ragged"],
              max(worst["fleet_ragged"], res["max_abs_err"],
-                 um_w["max_abs_err"], churn["max_abs_err"]), timing),
+                 um_w["max_abs_err"], churn["max_abs_err"],
+                 ctrl["max_abs_err"]), timing),
             ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),

@@ -1,15 +1,17 @@
 """The JAX reference's answers at chip_smoke.py's §6.1 setting: the values
 the smoke pins (``RHO["um"]``, ``RMSE_PIN``, ``AGG_RMSE_PIN``,
-``ENTROPY_PIN``, ``CHURN_PIN``), computed on the CPU by the reference's
-numpy paths (the loop backend, ``process_epoch``, ``query_window``) and,
-for the window-8 entropy at k_heavy 1024, its jnp device G-sum.
+``ENTROPY_PIN``, ``CHURN_PIN``, ``CONTROL_PIN``), computed on the CPU by
+the reference's numpy paths (the loop backend, ``process_epoch``,
+``query_window``) and, for the window-8 entropy at k_heavy 1024, its jnp
+device G-sum.
 
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn (default: all).  Prints one ``name value`` line per result, then one
-JSON object.  All sections take a few minutes at this full-scale setting;
-``churn`` alone took 31.8 s (wall) on an 8-core x86 CPU.
+churn, control (default: all).  Prints one ``name value`` line per
+result, then one JSON object.  All sections take a few minutes at this
+full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
+CPU, ``control`` under 45 s.
 
 The ``churn`` section runs the smoke's failure schedule
 (``churn_schedule``: 5 of 20 switches die at epoch 17 and return at 25,
@@ -23,6 +25,12 @@ PEBs, the reference's own ``apply_event`` and ``_apply_pending_resizes``
 on a loop-backend system for the control, and ``query_window(merge=
 "fragment")`` for the answers.  ``tests/test_torch_churn.py`` holds the
 port to the same emulation at a small size.
+
+The ``control`` section runs the reference's ``VersionedControlPlane``
+around its loop backend over the smoke's lossy channels (``lossy_ctrl``):
+cs and cms in windows of 8 with no churn, and cs per epoch under
+``churn_schedule``.  ``tests/test_torch_control.py`` holds the port's
+plane to the same oracle at a small size.
 """
 import hashlib
 import json
@@ -38,10 +46,12 @@ from repro.core.disketch import (AggregatedSystem, DiscoSystem,
 from repro.core.fragment import FragmentConfig, process_epoch
 from repro.core.hashing import level_of
 from repro.core.sketches import true_entropy
+from repro.net.channel import LossyChannel
 from repro.net.simulator import (ComposedSchedule, FailureSchedule,
                                  Replayer, ResourcePressure, rmse)
 from repro.net.topology import FatTree, core_on_path
 from repro.net.traffic import gen_workload, gini_memories
+from repro.runtime.control import VersionedControlPlane
 
 # chip_smoke.py's setting
 N_FLOWS, N_PACKETS, N_EPOCHS, LOG2_TE, SEED = 200_000, 2_000_000, 32, 16, 1
@@ -49,7 +59,7 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window", "churn")
+            "um_window", "churn", "control")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 
@@ -98,11 +108,27 @@ def churn_schedule(n_switches=20):
         ResourcePressure(n_switches, horizon=N_EPOCHS, seed=5)])
 
 
+def lossy_ctrl():
+    """The smoke's control channels: directives lose 40%, duplicate 20%
+    and reorder 30% of copies; ACKs lose 20% and duplicate 20%; both
+    delay 0 or 1 extra round."""
+    return (LossyChannel(p_drop=0.4, p_dup=0.2, p_reorder=0.3, delay=(0, 1),
+                         seed=17),
+            LossyChannel(p_drop=0.2, p_dup=0.2, delay=(0, 1), seed=18))
+
+
 def n_log_digest(n_log):
     """A short digest of an n trajectory (one {switch: n} per epoch)."""
     rows = [[[int(sw), int(n)] for sw, n in sorted(d.items())]
             for d in n_log]
     return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
+
+
+def json_digest(obj):
+    """A short digest of a JSON-able object (the control plane's
+    ``clamp_log``)."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()[:16]
 
 
 class ChurnWindowEmulation:
@@ -341,16 +367,23 @@ def main(sections):
             um_gsum_device(ests, lvl, _g_entropy, k_heavy=1024)))
     if "churn" in sections:
         churn(wl, rep, mems, keys, truth, paths, epochs)
+    if "control" in sections:
+        control(wl, rep, mems, keys, truth, paths, epochs)
     print(json.dumps(out))
+
+
+def truth_over(wl, es):
+    """The 5-hop flows' true sizes over the epochs ``es``."""
+    in_es = np.isin(wl.pkt_ts >> LOG2_TE, list(es))
+    return np.bincount(wl.pkt_flow[in_es],
+                       minlength=len(wl.keys))[wl.path_len == 5]
 
 
 def churn(wl, rep, mems, keys, truth, paths, epochs):
     """The churn phase's pins: per-epoch cs on the loop backend, window 8
     (cs and cms, parity groups of 5) on ``ChurnWindowEmulation``."""
     es = list(CHURN_EPOCHS)
-    in_es = np.isin(wl.pkt_ts >> LOG2_TE, es)
-    truth_es = np.bincount(wl.pkt_flow[in_es],
-                           minlength=len(wl.keys))[wl.path_len == 5]
+    truth_es = truth_over(wl, es)
     s = DiSketchSystem(mems, "cs", rho_target=RHO["cs"], log2_te=LOG2_TE)
     rep.run(s, failures=churn_schedule())
     save("churn epoch dead_at", {int(e): sorted(int(x) for x in d)
@@ -383,6 +416,47 @@ def churn(wl, rep, mems, keys, truth, paths, epochs):
             for failures in ("mask", "oblivious"):
                 save(f"churn window cs records {failures}", rmse(em.query(
                     keys, paths, es, failures, merge="subepoch"), truth_es))
+
+
+def control(wl, rep, mems, keys, truth, paths, epochs):
+    """The control phase's pins: the reference's plane around its loop
+    backend, over ``lossy_ctrl``'s channels."""
+    def plane(kind, channels=None):
+        return VersionedControlPlane(
+            DiSketchSystem(mems, kind, rho_target=RHO[kind], log2_te=LOG2_TE),
+            *(lossy_ctrl() if channels is None else channels))
+
+    for kind, channels in (("cs", ()), ("cs", None), ("cms", None)):
+        name = f"control window {kind}" + (" lossless" if channels == ()
+                                           else "")
+        p = plane(kind, channels)
+        # run_window is called directly: Replayer.run would run a system
+        # without a fleet epoch by epoch whatever the window, and the
+        # plane would react every epoch.  Called directly, the loop
+        # backend runs the window's epochs with ns unchanged (external
+        # control) and _post_dispatch walks the window's PEBs once: the
+        # fleet window path's semantics.
+        for e0 in range(0, N_EPOCHS, WINDOW):
+            p.run_window(e0, [rep.epoch_stream(e) for e in
+                              range(e0, min(e0 + WINDOW, N_EPOCHS))])
+        save(f"{name} applied", n_log_digest(p.applied_log))
+        save(f"{name} stale", p.stale_epochs())
+        save(f"{name} stats", p.stats())
+        save(f"{name} rmse", rmse(p.query_flows(keys, paths, epochs,
+                                                merge="fragment"), truth))
+    # per epoch under churn, through the reference's own Replayer.run
+    es = list(CHURN_EPOCHS)
+    p = plane("cs")
+    rep.run(p, failures=churn_schedule())
+    save("control epoch cs applied", n_log_digest(p.applied_log))
+    save("control epoch cs clamps", p.clamp_log)
+    save("control epoch cs clamps digest", json_digest(p.clamp_log))
+    save("control epoch cs stats", p.stats())
+    save("control epoch cs stale", p.stale_epochs())
+    est = p.query_flows(keys, paths, es, failures="mask")
+    save("control epoch cs stale_config",
+         p.last_observability["stale_config"])
+    save("control epoch cs rmse", rmse(est, truth_over(wl, es)))
 
 
 if __name__ == "__main__":

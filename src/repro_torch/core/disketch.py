@@ -3,9 +3,10 @@
 
 Per-switch single-row fragments sized to each switch's residual memory,
 the §4.2 subepoch-count control loop run per epoch (``run_epoch``) or per
-window (``run_window``), and composite queries: on the device next to the
-resident window counters, or over the exported records (the record plane,
-``core.query``).
+window (``run_window``), or left to a versioned control plane over a lossy
+channel (``control_external``, ``runtime.control``), and composite
+queries: on the device next to the resident window counters, or over the
+exported records (the record plane, ``core.query``).
 
 Churn (§6): ``apply_event`` takes switch failures, recoveries and
 resource resizes (``net.simulator.FailureSchedule``, ``ResourcePressure``)
@@ -114,6 +115,11 @@ class DiSketchSystem:
         # Re-equalizations the actual width clamped (intended vs applied),
         # surfaced by ``observability``.
         self.clamp_log: List[Dict] = []
+        # External control (``runtime.control.VersionedControlPlane`` sets
+        # it): the system stops applying Eq. 6 and §6 itself, so ``ns``
+        # holds what the switches actually applied and the (possibly
+        # lossy) control plane owns the intent.
+        self.control_external = False
         # What the last query window could observe (``observability``).
         self.last_observability: Optional[Dict] = None
         self.backend = backend
@@ -133,7 +139,8 @@ class DiSketchSystem:
 
     def _observe(self, epoch: int, dead: frozenset, recs,
                  pebs: Dict[int, float]) -> None:
-        """Keep an epoch's dead set, records and PEBs and apply Eq. 6."""
+        """Keep an epoch's dead set, records and PEBs and apply Eq. 6
+        (unless the control is external)."""
         if dead:
             self._dead_at[epoch] = dead
         else:
@@ -142,7 +149,7 @@ class DiSketchSystem:
         self.peb_log.append(pebs)
         for sw in pebs:
             self._peb_width[sw] = self.fragments[sw].width
-        if self.subepoching:
+        if self.subepoching and not self.control_external:
             for sw, peb in pebs.items():
                 self.ns[sw] = equalize.next_n(self.ns[sw], peb,
                                               self.rho_target)
@@ -156,10 +163,11 @@ class DiSketchSystem:
         ``event`` has ``.kind`` in {"fail", "recover", "shrink", "grow"},
         ``.switch`` and ``.factor`` (``net.simulator.FailureEvent``).
         "fail" reclaims the switch's sketch resource and re-equalizes the
-        survivors (§6); "recover" rejoins it as a fresh fragment at
-        n_0 = 1 (its history went with the memory); "shrink"/"grow"
-        multiply its memory by ``factor`` now, or at the next dispatch
-        when ``defer_resize`` (widths are frozen inside a window).
+        survivors (§6; not under external control); "recover" rejoins it
+        as a fresh fragment at n_0 = 1 (its history went with the memory);
+        "shrink"/"grow" multiply its memory by ``factor`` now, or at the
+        next dispatch when ``defer_resize`` (widths are frozen inside a
+        window).
         """
         sw = event.switch
         if sw not in self.fragments:
@@ -167,7 +175,8 @@ class DiSketchSystem:
         if event.kind == "fail":
             if sw not in self.dead:
                 self.dead.add(sw)
-                self._reequalize_survivors()
+                if not self.control_external:
+                    self._reequalize_survivors()
         elif event.kind == "recover":
             if sw in self.dead:
                 self.dead.discard(sw)
@@ -220,14 +229,16 @@ class DiSketchSystem:
         """Resize a fragment's memory now.  Resizing the columns scales the
         per-counter load (and the Eq. 4 bound) by ~w_old / w_new, so n
         converges against that prediction at once; the next observed epoch
-        corrects it through Eq. 6."""
+        corrects it through Eq. 6.  Under external control the control
+        plane makes that adjustment instead."""
         cfg = self.fragments[sw]
         new_mem = max(int(cfg.memory_bytes * factor), 4 * cfg.counter_bytes)
         w_old = cfg.width
         self.fragments[sw] = replace(cfg, memory_bytes=new_mem)
         if self.fleet is not None:
             self.fleet.refresh_widths()
-        if self.subepoching and sw not in self.dead:
+        if (self.subepoching and not self.control_external
+                and sw not in self.dead):
             last = self._last_pebs().get(sw)
             w_new = self.fragments[sw].width
             if last is not None and last > 0 and w_new != w_old:

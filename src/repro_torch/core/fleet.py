@@ -1245,3 +1245,19 @@ class FleetEpochRunner:
                 out[level] += Q.fleet_query_window(
                     stacks, params, None, keys, "um", frag_sel=sel)
         return out * scale if scale != 1.0 else out
+
+    def cell_counters(self, epoch: int, sw: int) -> np.ndarray:
+        """One (epoch, switch) cell of a retained window as an exact int32
+        ``(n_levels, n, width)`` copy: the switch's live block at that
+        epoch's ``n`` and width, read through ``_WindowBuffer.block`` from
+        the resident group or the host copy (the reference pads it to the
+        window's ``(n_sub_max, width_max)``).  Counters are exact integers
+        below 2^24, so the cast is exact."""
+        if epoch not in self._window_bufs:
+            raise KeyError(f"epoch {epoch} has no retained window")
+        buf, e_idx = self._window_bufs[epoch]
+        i = self._frag_pos[sw]
+        L = self.n_levels
+        block = buf.block(e_idx, i * L, L,
+                          *self._block_shape(self._params_log[epoch], i))
+        return block.to(torch.int32).cpu().numpy()

@@ -427,3 +427,41 @@ def test_recover_round_trip_on_card(cuda_device):
             np.testing.assert_array_equal(lossy.records[e][sw].counters,
                                           cpu.records[e][sw].counters)
     assert lossy.records[4][3].counters.any()
+
+
+def test_lossy_control_plane_on_card(cuda_device):
+    """The versioned control plane over lossy channels drives the window
+    path on the card exactly as on the CPU: the same applied and intended
+    configs, stale epochs and protocol counters, and every resident row
+    group of every window equal, launched through B1."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.channel import LossyChannel
+    from repro_torch.runtime import VersionedControlPlane
+
+    mems = {sw: 256 << (sw % 4) for sw in range(6)}
+    planes = []
+    before = FK.fleet_update_ragged.launches
+    for dev in (cuda_device, "cpu"):
+        plane = VersionedControlPlane(
+            DiSketchSystem(mems, "cms", rho_target=0.5, log2_te=10,
+                           device=dev),
+            LossyChannel(p_drop=0.4, p_dup=0.2, p_reorder=0.3, delay=(0, 1),
+                         seed=17),
+            LossyChannel(p_drop=0.2, p_dup=0.2, delay=(0, 1), seed=18))
+        for e0 in range(0, 8, 2):
+            plane.run_window(e0, [_churn_streams(e) for e in (e0, e0 + 1)])
+        planes.append(plane)
+    assert FK.fleet_update_ragged.launches > before
+    card, cpu = planes
+    assert card.stale_epochs() and card.stale_epochs() == cpu.stale_epochs()
+    assert card.applied_log == cpu.applied_log
+    assert card.intent_log == cpu.intent_log
+    assert card.stats() == cpu.stats()
+    assert card.system.n_log == cpu.system.n_log
+    for e0 in range(0, 8, 2):
+        got = card.fleet._window_bufs[e0][0].device()
+        want = cpu.fleet._window_bufs[e0][0].device()
+        assert len(got) == len(want)
+        for (rows, c), (rows_w, c_w) in zip(got, want):
+            assert c.is_cuda and np.array_equal(rows, rows_w)
+            assert torch.equal(c.cpu(), c_w)
