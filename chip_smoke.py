@@ -41,14 +41,20 @@ full-scale setting:
   over lossy channels (drops, duplicates, reorders), held to twins run at
   the applied configs; then ``Replayer.run(plane, failures=...)`` per
   epoch for cs under the churn schedule over the lossy channels, where
-  the resource pressure reaches the switch agents (NACKs, clamps).
+  the resource pressure reaches the switch agents (NACKs, clamps);
+* the durable export plane (``runtime.export.DurableExportPlane``):
+  ``Replayer.run(plane, window=8)`` for cs over lossy export channels with
+  checkpoints and a collector crash after the second window, drained and
+  held to the plane-free window run group by group; and for cms with every
+  message of one switch dropped, its cells lost and masked exactly.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
 kernels, that the dense, ragged and loop counters are bit-identical, and
 that the answers are right: the RMSEs and entropies are pinned to the JAX
 reference's values at this setting, and so are the control plane's
-applied configs, stale epochs and protocol counters.
+applied configs, stale epochs and protocol counters, and the export
+plane's protocol counters and crash report.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -210,6 +216,40 @@ CONTROL_PIN = {
                                "n_dup": 113, "n_delivered": 619,
                                "pending": 7}},
         rmse=14.060080943950874),
+}
+# The durable export plane (scripts/reference_pins.py export): the
+# reference's DurableExportPlane around its loop backend, run_window called
+# on it window by window, over lossy_export()'s channels.  cs: max_retries
+# 12, a checkpoint every EXPORT_CKPT_EVERY rounds (2 kept), EXPORT_STEPS
+# rounds after each window dispatch, a collector crash after the window
+# from EXPORT_CRASH_AFTER, then drain(); "crash" is the crash() report
+# with its "restaged" cells as their json_digest() and count, "stats" the
+# plane's stats() after the drain, "checkpoints" the checkpoints taken.
+# cms: every message of switch EXPORT_VICTIM dropped, max_retries 2;
+# "drop stats" its stats() after the drain.  The protocol depends only on
+# which cells were staged and when, so the fleet's plane must match.
+EXPORT_STEPS, EXPORT_CKPT_EVERY, EXPORT_CRASH_AFTER = 8, 10, 8
+EXPORT_VICTIM = 16
+EXPORT_PIN = {
+    "crash": {"restored_step": 1, "lost_inflight": 76, "dropped_cells": 316,
+              "restored_cells": 185, "n_restaged": 135,
+              "restaged": "6a55b35e98ec4a8e"},
+    "stats": {"now": 52, "n_tx": 2370, "n_rx": 1926, "n_dup_rx": 319,
+              "n_applied": 640, "n_pending": 0, "n_lost": 0, "n_crashes": 1,
+              "channel": {"n_sent": 2370, "n_dropped": 737, "n_dup": 326,
+                          "n_delivered": 1926, "pending": 0},
+              "ack_channel": {"n_sent": 1926, "n_dropped": 290,
+                              "n_dup": 315, "n_delivered": 1908,
+                              "pending": 0}},
+    "checkpoints": 5,
+    "drop stats": {"now": 32, "n_tx": 1312, "n_rx": 1216, "n_dup_rx": 0,
+                   "n_applied": 608, "n_pending": 0, "n_lost": 32,
+                   "n_crashes": 0,
+                   "channel": {"n_sent": 1312, "n_dropped": 96, "n_dup": 0,
+                               "n_delivered": 1216, "pending": 0},
+                   "ack_channel": {"n_sent": 1216, "n_dropped": 0,
+                                   "n_dup": 0, "n_delivered": 1216,
+                                   "pending": 0}},
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
@@ -876,8 +916,8 @@ def main_path(dev, sc):
         if kind == "cs":
             result["timing"] = kernel_timing(
                 _window_groups(system.fleet, rep, WINDOW), dev)
-            # for the control phase: this plane-free run's groups, before
-            # the host copy below releases window 8's
+            # for the control and export phases: this plane-free run's
+            # groups, before the host copy below releases window 8's
             result["cs_groups"] = [
                 [(rows, c.cpu()) for rows, c in
                  fleet._window_bufs[w0][0].device()]
@@ -1934,8 +1974,8 @@ def control_phase(dev, sc, main):
     assert plane.n_directives > 0 and plane.stale_epochs() == []
     n_groups = _groups_equal("lossless cs window 8",
                              _resident_groups(system.fleet),
-                             main.pop("cs_groups"))
-    free = main.pop("cs_n_log")
+                             main["cs_groups"])
+    free = main["cs_n_log"]
     for d in range(N_EPOCHS // WINDOW):
         start = free[d * WINDOW - 1] if d else {sw: 1 for sw in mems}
         assert plane.applied_log[d] == start, d
@@ -2049,6 +2089,227 @@ def control_phase(dev, sc, main):
     del system, plane
     torch.cuda.empty_cache()
     return res
+
+
+def lossy_export():
+    """The export phase's channels (the reference tests' ``lossy()``):
+    data messages lose 30%, duplicate 20% and reorder 30% of copies and
+    take 0 to 2 extra rounds; ACKs lose 15%, duplicate 20% and take 0 or
+    1 extra round."""
+    from repro_torch.net.channel import LossyChannel
+
+    return (LossyChannel(p_drop=0.3, p_dup=0.2, p_reorder=0.3, delay=(0, 2),
+                         seed=9),
+            LossyChannel(p_drop=0.15, p_dup=0.2, delay=(0, 1), seed=10))
+
+
+def _drop_switch(victim, seed):
+    """A lossless channel that drops every message of switch ``victim``."""
+    from repro_torch.net.channel import LossyChannel
+
+    class DropSwitch(LossyChannel):
+        def send(self, msg, now):
+            if msg.frag == victim:
+                self.n_sent += 1
+                self.n_dropped += 1
+                return
+            super().send(msg, now)
+
+    return DropSwitch(seed=seed)
+
+
+def _live_block_bytes(fleet, es):
+    """Bytes of the int32 live ``(L, n, width)`` blocks of every cell of
+    the epochs ``es``: what staging them copies to the host."""
+    L = fleet.n_levels
+    return sum(4 * L * int(np.prod(fleet._block_shape(fleet._params_log[e],
+                                                      i)))
+               for e in es for i in range(len(fleet.frag_order)))
+
+
+def _export_crash_run(sc, main):
+    """cs window 8 under the export plane with checkpoints and a collector
+    crash after the second window, drained: held to the plane-free run
+    (``main``) and to ``EXPORT_PIN``.  Returns B1's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.simulator import rmse
+    from repro_torch.runtime import DurableExportPlane
+
+    rep, keys, truth, paths = sc["rep"], sc["keys"], sc["truth"], sc["paths"]
+    d = tempfile.mkdtemp(prefix="export_ckpt_")
+    try:
+        system = DiSketchSystem(sc["mems"], "cs", rho_target=RHO["cs"],
+                                log2_te=LOG2_TE)
+        fleet = system.fleet
+        plane = DurableExportPlane(
+            system, *lossy_export(), max_retries=12, ckpt_dir=d,
+            ckpt_every=EXPORT_CKPT_EVERY, ckpt_keep=2,
+            steps_per_dispatch=EXPORT_STEPS)
+        # timed hooks on the instance: staging, delivery, checkpoints,
+        # the crash after window EXPORT_CRASH_AFTER, the bytes retained on
+        # the switches before each round
+        stage = plane._stage_epoch = _Timed(plane._stage_epoch)
+        deliver = fleet.deliver_cell = _Timed(fleet.deliver_cell)
+        crash = _Timed(plane.crash)
+        ckpt_fn, ckpts = plane.checkpoint, []
+        step_fn, retained = plane.step, [0]
+        window_fn = plane.run_window
+
+        def checkpoint():
+            t0 = time.perf_counter()
+            s = ckpt_fn()
+            path = os.path.join(d, f"step_{s:09d}")
+            ckpts.append((sum(os.path.getsize(os.path.join(path, f))
+                              for f in os.listdir(path)),
+                          time.perf_counter() - t0))
+            return s
+
+        def step():
+            retained[0] = max(retained[0], sum(
+                ent.payload.nbytes for exp in plane.exporters.values()
+                for ent in exp.entries.values()))
+            step_fn()
+
+        def run_window(e0, streams_list, **kw):
+            window_fn(e0, streams_list, **kw)
+            if e0 == EXPORT_CRASH_AFTER:
+                crash()
+
+        plane.checkpoint, plane.step = checkpoint, step
+        plane.run_window = run_window
+        counts, host_s, _ = _replay(rep, plane, window=WINDOW)
+        assert counts["fleet_ragged"] > 0 and sum(counts.values()) == \
+            counts["fleet_ragged"], counts
+        n_deliver_replay = len(deliver.calls)
+        d0 = time.perf_counter()
+        plane.drain()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - d0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    assert not fleet._unexported and not fleet._row_live
+    assert plane.lost_cells() == set() and plane.pending_cells() == set()
+    assert len(crash.calls) == 1
+    n_groups = _groups_equal("export crash run", _resident_groups(fleet),
+                             main.pop("cs_groups"))
+    assert system.n_log == main.pop("cs_n_log"), "n_log != the plane-free run's"
+    report = dict(crash.calls[0][1])
+    restaged = report.pop("restaged")
+    report.update(n_restaged=len(restaged), restaged=json_digest(restaged))
+    assert report == EXPORT_PIN["crash"], \
+        f"crash() {report} != the reference's {EXPORT_PIN['crash']}"
+    st = plane.stats()
+    assert st == EXPORT_PIN["stats"], \
+        f"stats {st} != the reference's {EXPORT_PIN['stats']}"
+    assert plane._ckpt_step == len(ckpts) == EXPORT_PIN["checkpoints"]
+    q0 = time.perf_counter()
+    err = rmse(plane.query_flows(keys, paths, list(range(N_EPOCHS)),
+                                 merge="fragment"), truth)
+    q_s = time.perf_counter() - q0
+    _pinned("export crash run cs window 8 RMSE", err,
+            RMSE_PIN[("cs", "window 8")], PIN_RTOL)
+    windows = range(0, N_EPOCHS, WINDOW)
+    stage_ms = [1e3 * sum(t for t, _ in stage.calls[i:i + WINDOW])
+                for i in range(0, len(stage.calls), WINDOW)]
+    staged = [_live_block_bytes(fleet, range(w0, w0 + WINDOW))
+              for w0 in windows]
+    bufs = [fleet._window_bufs[w0][0] for w0 in windows]
+    host_copy = [sum(c.numel() * 8 for _, c in b.device()) for b in bufs]
+    padded = [int(np.prod(b._shape)) * 8 for b in bufs]
+    deliver_ms = [1e3 * t for t, _ in deliver.calls]
+    _log(f"export  cs window {WINDOW} crash run: replay host {host_s:.2f} s, "
+         f"B1 launches {counts['fleet_ragged']} (CUDA); staging a window "
+         f"(cell_counters device-to-host + mark_unexported, 160 cells) "
+         f"{', '.join(f'{m:.2f}' for m in stage_ms)} ms; delivering a cell "
+         f"{np.mean(deliver_ms):.3f} ms (max {max(deliver_ms):.3f}, "
+         f"{n_deliver_replay} in the replay, {len(deliver_ms)} in all)")
+    _log(f"export  bytes staged a window (int32 live blocks) {staged}; the "
+         f"window's int64 host copy {host_copy}, padded {padded}; peak "
+         f"retained on the switches {retained[0]} B")
+    _log(f"export  checkpoints (B, s): "
+         f"{', '.join(f'({b}, {t:.3f})' for b, t in ckpts)}; crash after "
+         f"window {EXPORT_CRASH_AFTER}: recovered in {crash.calls[0][0]:.3f} "
+         f"s, report {report}; drain {drain_s:.3f} s; {st['now']} rounds, "
+         f"{st['channel']['n_sent']} data messages and "
+         f"{st['ack_channel']['n_sent']} ACKs sent, "
+         f"{st['n_dup_rx']} duplicates received")
+    _log(f"export  {n_groups} resident groups of the 4 windows == the "
+         f"plane-free run's, n_log == its n_log; query {q_s:.2f} s, RMSE "
+         f"{err!r} (RMSE_PIN's); crash(), stats() and checkpoints the "
+         f"reference plane's (EXPORT_PIN)")
+    return counts["fleet_ragged"]
+
+
+def _export_drop_run(sc):
+    """cms window 8 with every message of switch ``EXPORT_VICTIM`` dropped:
+    its 32 cells lost; the mask query of the flows through it equals the
+    plane-free run's with the switch taken out of their paths, exactly;
+    oblivious <= mask.  Returns B1's launches."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.runtime import DurableExportPlane
+
+    rep, mems, keys, paths = sc["rep"], sc["mems"], sc["keys"], sc["paths"]
+    epochs = list(range(N_EPOCHS))
+    system = DiSketchSystem(mems, "cms", rho_target=RHO["cms"],
+                            log2_te=LOG2_TE)
+    plane = DurableExportPlane(system, _drop_switch(EXPORT_VICTIM, seed=4),
+                               max_retries=2, steps_per_dispatch=EXPORT_STEPS)
+    counts, host_s, _ = _replay(rep, plane, window=WINDOW)
+    assert counts["fleet_ragged"] > 0 and sum(counts.values()) == \
+        counts["fleet_ragged"], counts
+    plane.drain()
+    assert plane.lost_cells() == {(EXPORT_VICTIM, e) for e in epochs}
+    st = plane.stats()
+    assert st == EXPORT_PIN["drop stats"], \
+        f"drop stats {st} != the reference's {EXPORT_PIN['drop stats']}"
+    twin = DiSketchSystem(mems, "cms", rho_target=RHO["cms"],
+                          log2_te=LOG2_TE)
+    rep.run(twin, window=WINDOW)
+    assert twin.n_log == system.n_log
+    sel = [i for i, p in enumerate(paths) if EXPORT_VICTIM in p]
+    kv, pv = keys[sel], [paths[i] for i in sel]
+    q0 = time.perf_counter()
+    mask = plane.query_flows(kv, pv, epochs, merge="fragment",
+                             failures="mask")
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - q0
+    assert plane.last_observability["lost"] == sorted(plane.lost_cells())
+    survivors = twin.query_flows(
+        kv, [tuple(s for s in p if s != EXPORT_VICTIM) for p in pv], epochs,
+        merge="fragment", failures="mask")
+    assert np.array_equal(mask, survivors), \
+        "mask query != the survivors-only query"
+    obl = plane.query_flows(kv, pv, epochs, merge="fragment",
+                            failures="oblivious")
+    assert (obl <= mask).all() and (obl < mask).any()
+    assert all(b.resident for b, _ in system.fleet._window_bufs.values())
+    _log(f"export  cms window {WINDOW} drop run (every message of switch "
+         f"{EXPORT_VICTIM} dropped, max_retries 2): replay host "
+         f"{host_s:.2f} s, B1 launches {counts['fleet_ragged']}; lost cells "
+         f"== its {N_EPOCHS} epochs; {st['now']} rounds, "
+         f"{st['channel']['n_sent']} data messages and "
+         f"{st['ack_channel']['n_sent']} ACKs sent (stats() the reference "
+         f"plane's); mask query of its {len(kv)} 5-hop flows {q_s:.2f} s == "
+         f"the plane-free run's with it taken out of their paths, exactly; "
+         f"oblivious <= mask (< on {int((obl < mask).sum())} flows)")
+    return counts["fleet_ragged"]
+
+
+def export_phase(sc, main):
+    """The durable export plane at the §6.1 setting: the cs crash run and
+    the cms drop run.  Returns B1's launches."""
+    import torch
+
+    launches = _export_crash_run(sc, main) + _export_drop_run(sc)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _b2_rows(params, signed):
@@ -2331,12 +2592,14 @@ def main() -> int:
         _phase(aggregated_phase, dev, sc)
         churn = _phase(churn_phase, dev, sc)
         ctrl = _phase(control_phase, dev, sc, res)
+        export = _phase(export_phase, sc, res)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
             ("fleet_ragged", "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
-             + um_e["ragged"] + churn["ragged"] + ctrl["ragged"],
+             + um_e["ragged"] + churn["ragged"] + ctrl["ragged"]
+             + export,
              max(worst["fleet_ragged"], res["max_abs_err"],
                  um_w["max_abs_err"], churn["max_abs_err"],
                  ctrl["max_abs_err"]), timing),

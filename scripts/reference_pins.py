@@ -8,10 +8,10 @@ device G-sum.
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn, control (default: all).  Prints one ``name value`` line per
+churn, control, export (default: all).  Prints one ``name value`` line per
 result, then one JSON object.  All sections take a few minutes at this
 full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
-CPU, ``control`` under 45 s.
+CPU, ``control`` under 45 s, ``export`` under 30 s.
 
 The ``churn`` section runs the smoke's failure schedule
 (``churn_schedule``: 5 of 20 switches die at epoch 17 and return at 25,
@@ -31,10 +31,22 @@ around its loop backend over the smoke's lossy channels (``lossy_ctrl``):
 cs and cms in windows of 8 with no churn, and cs per epoch under
 ``churn_schedule``.  ``tests/test_torch_control.py`` holds the port's
 plane to the same oracle at a small size.
+
+The ``export`` section runs the reference's ``DurableExportPlane`` around
+its loop backend over the smoke's lossy export channels
+(``lossy_export``), driven window by window through ``run_window`` as the
+``control`` section is: cs with checkpoints and a collector crash after
+the second window, then a drain (``EXPORT_PIN``'s ``stats()`` and
+``crash()`` report); cms with every message of one switch dropped.  A
+message's fate depends on ``(seed, frag, epoch, seq)`` alone, so these
+protocol values are those of any backend that stages the same cells at
+the same rounds.  ``tests/test_torch_export.py`` holds the port's plane
+to the same oracle at a small size.
 """
 import hashlib
 import json
 import sys
+import tempfile
 
 import numpy as np
 
@@ -52,6 +64,7 @@ from repro.net.simulator import (ComposedSchedule, FailureSchedule,
 from repro.net.topology import FatTree, core_on_path
 from repro.net.traffic import gen_workload, gini_memories
 from repro.runtime.control import VersionedControlPlane
+from repro.runtime.export import DurableExportPlane
 
 # chip_smoke.py's setting
 N_FLOWS, N_PACKETS, N_EPOCHS, LOG2_TE, SEED = 200_000, 2_000_000, 32, 16, 1
@@ -59,9 +72,14 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window", "churn", "control")
+            "um_window", "churn", "control", "export")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
+# the export phase: protocol rounds after each window dispatch, the
+# checkpoint cadence in rounds, the window after which the collector
+# crashes, and the switch whose export messages the drop run loses
+EXPORT_STEPS, EXPORT_CKPT_EVERY, EXPORT_CRASH_AFTER = 8, 10, 8
+EXPORT_VICTIM = 16
 
 out = {}
 
@@ -115,6 +133,31 @@ def lossy_ctrl():
     return (LossyChannel(p_drop=0.4, p_dup=0.2, p_reorder=0.3, delay=(0, 1),
                          seed=17),
             LossyChannel(p_drop=0.2, p_dup=0.2, delay=(0, 1), seed=18))
+
+
+def lossy_export():
+    """The smoke's export channels (the reference tests' ``lossy()``):
+    data messages lose 30%, duplicate 20% and reorder 30% of copies and
+    take 0 to 2 extra rounds; ACKs lose 15%, duplicate 20% and take 0 or
+    1 extra round."""
+    return (LossyChannel(p_drop=0.3, p_dup=0.2, p_reorder=0.3, delay=(0, 2),
+                         seed=9),
+            LossyChannel(p_drop=0.15, p_dup=0.2, delay=(0, 1), seed=10))
+
+
+class DropSwitch(LossyChannel):
+    """A lossless channel that drops every message of one switch."""
+
+    def __init__(self, victim, **kw):
+        super().__init__(**kw)
+        self._victim = victim
+
+    def send(self, msg, now):
+        if msg.frag == self._victim:
+            self.n_sent += 1
+            self.n_dropped += 1
+            return
+        super().send(msg, now)
 
 
 def n_log_digest(n_log):
@@ -369,6 +412,8 @@ def main(sections):
         churn(wl, rep, mems, keys, truth, paths, epochs)
     if "control" in sections:
         control(wl, rep, mems, keys, truth, paths, epochs)
+    if "export" in sections:
+        export(rep, mems)
     print(json.dumps(out))
 
 
@@ -457,6 +502,42 @@ def control(wl, rep, mems, keys, truth, paths, epochs):
     save("control epoch cs stale_config",
          p.last_observability["stale_config"])
     save("control epoch cs rmse", rmse(est, truth_over(wl, es)))
+
+
+def export(rep, mems):
+    """The export phase's pins: the reference's plane around its loop
+    backend over ``lossy_export``'s channels, window by window (its
+    ``Replayer.run`` would stage and step once an epoch)."""
+    def windows(p, after=None):
+        for e0 in range(0, N_EPOCHS, WINDOW):
+            p.run_window(e0, [rep.epoch_stream(e) for e in
+                              range(e0, min(e0 + WINDOW, N_EPOCHS))])
+            if after is not None and e0 == EXPORT_CRASH_AFTER:
+                after(p)
+
+    crashes = []
+    with tempfile.TemporaryDirectory() as d:
+        p = DurableExportPlane(
+            DiSketchSystem(mems, "cs", rho_target=RHO["cs"],
+                           log2_te=LOG2_TE), *lossy_export(),
+            max_retries=12, ckpt_dir=d, ckpt_every=EXPORT_CKPT_EVERY,
+            ckpt_keep=2, steps_per_dispatch=EXPORT_STEPS)
+        windows(p, after=lambda p: crashes.append(p.crash()))
+        p.drain()
+        crash = dict(crashes[0])
+        restaged = crash.pop("restaged")
+        save("export crash", dict(crash, n_restaged=len(restaged),
+                                  restaged=json_digest(restaged)))
+        save("export stats", p.stats())
+        save("export checkpoints", p._ckpt_step)
+    p = DurableExportPlane(
+        DiSketchSystem(mems, "cms", rho_target=RHO["cms"], log2_te=LOG2_TE),
+        DropSwitch(EXPORT_VICTIM, seed=4), max_retries=2,
+        steps_per_dispatch=EXPORT_STEPS)
+    windows(p)
+    p.drain()
+    save("export drop lost", sorted(p.lost_cells()))
+    save("export drop stats", p.stats())
 
 
 if __name__ == "__main__":

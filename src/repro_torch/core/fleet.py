@@ -34,7 +34,13 @@ fragments (``parity_groups``) can reconstruct (``recover``).  A liveness
 registry per epoch masks dead and lost cells from the queries
 (``failures="mask"``) and scales blind epochs.
 
-Not ported yet: device meshes and the export hooks.
+The durable export plane (``runtime.export``) reads a window's cells as
+their live blocks (``cell_counters``), holds them back until their export
+messages arrive (``mark_unexported``, a liveness domain of its own) and
+patches them back in place (``deliver_cell``), on the resident groups or
+the host copy alike.
+
+Not ported yet: device meshes.
 """
 from __future__ import annotations
 
@@ -581,6 +587,11 @@ class FleetEpochRunner:
         # then reclaimed before the window's export): masked, and
         # recoverable from parity while one per group.
         self._lost: Dict[int, set] = {}
+        # epoch -> frag_order positions staged by the export plane and not
+        # delivered yet (``runtime.export``): zeroed and masked like dead
+        # cells, but in their own domain (in flight, not reclaimed), and
+        # live again once delivered (``deliver_cell``).
+        self._unexported: Dict[int, set] = {}
         # epoch -> per-group int32 XOR parity on the device: each member's
         # (L, n_i, w_i) block flattened, zero-padded to the group's
         # longest member, taken before the lost cells are zeroed.
@@ -748,6 +759,7 @@ class FleetEpochRunner:
         self._lost.pop(epoch, None)
         self._parity.pop(epoch, None)
         self._recorded.pop(epoch, None)
+        self._unexported.pop(epoch, None)
         if not invalid:
             self._row_live.pop(epoch, None)
             return
@@ -1261,3 +1273,73 @@ class FleetEpochRunner:
         block = buf.block(e_idx, i * L, L,
                           *self._block_shape(self._params_log[epoch], i))
         return block.to(torch.int32).cpu().numpy()
+
+    # -- export-plane cell hooks (runtime/export.py) -------------------------
+    # The durable export plane holds each (epoch, switch) cell of a retained
+    # window back (zeroed and masked, in its own liveness domain) until its
+    # export message arrives, then patches the delivered payload back in
+    # place, so late arrivals sharpen every later query through the
+    # ordinary ``failures="mask"`` machinery.  Both work on the cell's live
+    # ``(L, n, width)`` block, never on a padded one.
+
+    def _own_row_live(self, epoch: int) -> np.ndarray:
+        """The epoch's row liveness, as an array of its own: a per-epoch
+        run with dead switches shares it with ``_recorded``, which must
+        not change when a cell is held back or delivered."""
+        live = self._row_live.get(epoch)
+        if live is None:
+            live = np.ones(len(self.frag_order) * self.n_levels, bool)
+        elif live is self._recorded.get(epoch):
+            live = live.copy()
+        self._row_live[epoch] = live
+        return live
+
+    def mark_unexported(self, epoch: int, sws: Sequence[int]) -> None:
+        """Hold (epoch, switch) cells back from the query plane: zero each
+        switch's live block in the window and mask its rows.  Deliberately
+        not the ``_lost`` domain, which is parity's: a held cell is in
+        flight, not reclaimed.  The zeros are made where the window lives,
+        so no cell crosses between host and device."""
+        if epoch not in self._window_bufs:
+            raise KeyError(f"epoch {epoch} has no retained window")
+        buf, e_idx = self._window_bufs[epoch]
+        params = self._params_log[epoch]
+        dev = self.device if buf.resident else "cpu"
+        L = self.n_levels
+        live = self._own_row_live(epoch)
+        pend = self._unexported.setdefault(epoch, set())
+        for sw in sws:
+            i = self._frag_pos[sw]
+            buf.patch(e_idx, i * L, torch.zeros(
+                (L,) + self._block_shape(params, i), device=dev))
+            live[i * L:(i + 1) * L] = False
+            pend.add(i)
+
+    def deliver_cell(self, epoch: int, sw: int, counters: np.ndarray) -> None:
+        """Patch one delivered cell's exact integer ``(L, n, width)``
+        counters back into the window and mark its rows live: the inverse
+        of ``mark_unexported``.  Once every row of the epoch is live again
+        its liveness entry goes, which restores the fast path with no
+        failures."""
+        if epoch not in self._window_bufs:
+            raise KeyError(f"epoch {epoch} has no retained window")
+        buf, e_idx = self._window_bufs[epoch]
+        i = self._frag_pos[sw]
+        L = self.n_levels
+        want = (L,) + self._block_shape(self._params_log[epoch], i)
+        counters = torch.as_tensor(np.asarray(counters))
+        if tuple(counters.shape) != want:
+            raise ValueError(f"cell ({epoch}, {sw}) payload has shape "
+                             f"{tuple(counters.shape)}, its live block is "
+                             f"{want}")
+        buf.patch(e_idx, i * L, counters)
+        pend = self._unexported.get(epoch)
+        if pend is not None:
+            pend.discard(i)
+            if not pend:
+                del self._unexported[epoch]
+        if epoch in self._row_live:
+            live = self._own_row_live(epoch)
+            live[i * L:(i + 1) * L] = True
+            if live.all():
+                del self._row_live[epoch]

@@ -1,5 +1,5 @@
-"""Datacenter topology (paper §6): the k-ary Fat-Tree with ECMP (port of
-``repro/net/topology.py``'s ``FatTree``).
+"""Datacenter topologies (paper §6): the k-ary Fat-Tree with ECMP and the
+spine-leaf fabric (port of ``repro/net/topology.py``).
 
 The paper's 20-switch Fat-Tree is the standard k=4 fat-tree: 4 pods x
 (2 edge + 2 agg) + 4 cores, 16 hosts.  Paths are 1 hop (same edge), 3 hops
@@ -79,6 +79,38 @@ class FatTree(Topology):
         out[cross, 2] = core[cross]
         out[cross, 3] = agg_d[cross]
         out[cross, 4] = (self.edge0 + e_d)[cross]
+        return out
+
+
+class SpineLeaf(Topology):
+    """8 leaves (0-7) + 4 spines (8-11) = 12 switches (paper §6).  A path
+    is 1 hop (same leaf) or 3 (leaf, spine, leaf), the spine picked by
+    flow-key hash."""
+
+    def __init__(self, n_leaves: int = 8, n_spines: int = 4,
+                 hosts_per_leaf: int = 4):
+        self.n_leaves, self.n_spines = n_leaves, n_spines
+        self.hosts_per_leaf = hosts_per_leaf
+        super().__init__(name="spineleaf",
+                         n_switches=n_leaves + n_spines,
+                         n_hosts=n_leaves * hosts_per_leaf,
+                         core_ids=tuple(range(n_leaves,
+                                              n_leaves + n_spines)))
+
+    def paths(self, src: np.ndarray, dst: np.ndarray,
+              keys: np.ndarray) -> np.ndarray:
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        keys = np.asarray(keys, dtype=np.uint32)
+        l_s = src // self.hosts_per_leaf
+        l_d = dst // self.hosts_per_leaf
+        spine = self.n_leaves + H.hash_mod(keys, 17, self.n_spines)
+        out = np.full((len(src), 5), -1, dtype=np.int64)
+        same = l_s == l_d
+        out[same, 0] = l_s[same]
+        out[~same, 0] = l_s[~same]
+        out[~same, 1] = spine[~same]
+        out[~same, 2] = l_d[~same]
         return out
 
 

@@ -52,6 +52,12 @@ class Workload:
     def paths(self) -> List[Tuple[int, ...]]:
         return path_tuples(self.path_mat)
 
+    @property
+    def duration(self) -> int:
+        """The trace's span in time units: ``n_epochs`` epochs of
+        ``2**log2_te``."""
+        return self.n_epochs << self.log2_te
+
 
 def zipf_sizes(n_flows: int, total_packets: int, alpha: float,
                rng: np.random.RandomState,

@@ -465,3 +465,53 @@ def test_lossy_control_plane_on_card(cuda_device):
         for (rows, c), (rows_w, c_w) in zip(got, want):
             assert c.is_cuda and np.array_equal(rows, rows_w)
             assert torch.equal(c.cpu(), c_w)
+
+
+def test_export_plane_on_card(cuda_device, tmp_path):
+    """The durable export plane holds cells back and delivers them in the
+    resident groups on the card exactly as on the CPU: the same protocol
+    through a crash and a drain, the windows never copied to the host,
+    and the drained groups equal a plane-free run's."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.channel import LossyChannel
+    from repro_torch.runtime import DurableExportPlane
+
+    mems = {sw: 256 << (sw % 4) for sw in range(6)}
+
+    def window_run(target):
+        for e0 in range(0, 8, 4):
+            target.run_window(e0, [_churn_streams(e)
+                                   for e in range(e0, e0 + 4)])
+            if e0 == 0 and isinstance(target, DurableExportPlane):
+                for _ in range(3):
+                    target.step()
+                target.checkpoint()
+                target.step()
+                target.crash()
+
+    planes = []
+    for dev in (cuda_device, "cpu"):
+        plane = DurableExportPlane(
+            DiSketchSystem(mems, "cs", rho_target=0.5, log2_te=10,
+                           device=dev),
+            LossyChannel(p_drop=0.3, p_dup=0.2, p_reorder=0.3, delay=(0, 2),
+                         seed=9),
+            LossyChannel(p_drop=0.15, p_dup=0.2, delay=(0, 1), seed=10),
+            max_retries=12, ckpt_dir=str(tmp_path / str(dev)))
+        window_run(plane)
+        plane.drain()
+        planes.append(plane)
+    card, cpu = planes
+    free = DiSketchSystem(mems, "cs", rho_target=0.5, log2_te=10,
+                          device=cuda_device)
+    window_run(free)
+    assert card.stats() == cpu.stats() and card.stats()["n_crashes"] == 1
+    assert card.lost_cells() == set() and not card.fleet._unexported
+    for e0 in range(0, 8, 4):
+        buf = card.fleet._window_bufs[e0][0]
+        assert buf.resident and buf._host is None
+        for (rows, c), (_, c_cpu), (_, c_free) in zip(
+                buf.device(), cpu.fleet._window_bufs[e0][0].device(),
+                free.fleet._window_bufs[e0][0].device(), strict=True):
+            assert c.is_cuda and torch.equal(c, c_free)
+            assert torch.equal(c.cpu(), c_cpu)
