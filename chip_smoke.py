@@ -46,15 +46,23 @@ full-scale setting:
   ``Replayer.run(plane, window=8)`` for cs over lossy export channels with
   checkpoints and a collector crash after the second window, drained and
   held to the plane-free window run group by group; and for cms with every
-  message of one switch dropped, its cells lost and masked exactly.
+  message of one switch dropped, its cells lost and masked exactly;
+* the chaos harness (``runtime.chaos.ChaosHarness``) around the control
+  plane around the export plane, window 8: for cs over lossless channels,
+  held to the plane-free window run group by group; for cs and cms with
+  every failure plane armed at once (churn inside a window, resource
+  pressure, lossy export with collector crashes, lossy control), its
+  invariants machine-checked, every applied cell equal to a twin run at
+  the applied configs, B1's churn window held to the plain version.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
 kernels, that the dense, ragged and loop counters are bit-identical, and
 that the answers are right: the RMSEs and entropies are pinned to the JAX
 reference's values at this setting, and so are the control plane's
-applied configs, stale epochs and protocol counters, and the export
-plane's protocol counters and crash report.
+applied configs, stale epochs and protocol counters, the export
+plane's protocol counters and crash report, and the chaos harness's
+report, crash log and n trajectory.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -250,6 +258,59 @@ EXPORT_PIN = {
                    "ack_channel": {"n_sent": 1216, "n_dropped": 0,
                                    "n_dup": 0, "n_delivered": 1216,
                                    "pending": 0}},
+}
+# The chaos harness (scripts/reference_pins.py chaos): the reference's
+# ChaosHarness around its VersionedControlPlane around its
+# DurableExportPlane (max_retries CHAOS_MAX_RETRIES, no checkpoints) around
+# ChurnWindowEmulation(export=True), the reference's fleet window path
+# rebuilt from its parts, with its dead and lost cells kept out of the
+# staging as the fleet keeps them; driven window by window (windows of 8).
+# "lossless cs": lossless channels, no schedule, 4 export rounds after each
+# dispatch.  "cs", "cms": churn_schedule(), lossy_ctrl() and lossy_export(),
+# CHAOS_STEPS rounds after each dispatch and a collector crash every
+# CHAOS_CRASH_EVERY dispatches.  "report" is finish()'s (JSON), "crash_log"
+# the json_digest() of the crash() reports, "n_log" the n_log_digest() of
+# the system's n trajectory, "rmse" the RMSE of all 5-hop flows over the
+# 32 epochs, merge="fragment", failures="mask".
+CHAOS_STEPS, CHAOS_CRASH_EVERY, CHAOS_MAX_RETRIES = 6, 2, 12
+_CHAOS_LOSSY_EXPORT = {
+    "now": 87, "n_tx": 4639, "n_rx": 3652, "n_dup_rx": 601,
+    "n_applied": 595, "n_pending": 0, "n_lost": 0, "n_crashes": 2,
+    "channel": {"n_sent": 4639, "n_dropped": 1466, "n_dup": 642,
+                "n_delivered": 3652, "pending": 0},
+    "ack_channel": {"n_sent": 3652, "n_dropped": 556, "n_dup": 597,
+                    "n_delivered": 3479, "pending": 0}}
+CHAOS_PIN = {
+    "lossless cs": dict(
+        report={"dispatches": 4, "staged": 640, "crashes": 0,
+                "applied": 640, "lost": [],
+                "export": {"now": 16, "n_tx": 1280, "n_rx": 1280,
+                           "n_dup_rx": 0, "n_applied": 640, "n_pending": 0,
+                           "n_lost": 0, "n_crashes": 0,
+                           "channel": {"n_sent": 1280, "n_dropped": 0,
+                                       "n_dup": 0, "n_delivered": 1280,
+                                       "pending": 0},
+                           "ack_channel": {"n_sent": 1280, "n_dropped": 0,
+                                           "n_dup": 0, "n_delivered": 1280,
+                                           "pending": 0}},
+                "stale_epochs": [], "n_stale_epochs": 0, "n_directives": 8,
+                "n_clamps": 0, "max_version_lag": 0},
+        crash_log="4f53cda18c2baa0c", n_log="c9e56bf890338dab",
+        rmse=0.5982554646551216),
+    "cs": dict(
+        report={"dispatches": 4, "staged": 595, "crashes": 2,
+                "applied": 595, "lost": [], "export": _CHAOS_LOSSY_EXPORT,
+                "stale_epochs": list(range(8, 32)), "n_stale_epochs": 24,
+                "n_directives": 36, "n_clamps": 8, "max_version_lag": 0},
+        crash_log="4cc4ac0a3908e1ec", n_log="e84d04b74f78e1db",
+        rmse=8.221146033576748),
+    "cms": dict(
+        report={"dispatches": 4, "staged": 595, "crashes": 2,
+                "applied": 595, "lost": [], "export": _CHAOS_LOSSY_EXPORT,
+                "stale_epochs": list(range(8, 32)), "n_stale_epochs": 24,
+                "n_directives": 35, "n_clamps": 10, "max_version_lag": 0},
+        crash_log="4cc4ac0a3908e1ec", n_log="a0d93445e27d0ab8",
+        rmse=14.368594442549064),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
@@ -2196,8 +2257,8 @@ def _export_crash_run(sc, main):
     assert plane.lost_cells() == set() and plane.pending_cells() == set()
     assert len(crash.calls) == 1
     n_groups = _groups_equal("export crash run", _resident_groups(fleet),
-                             main.pop("cs_groups"))
-    assert system.n_log == main.pop("cs_n_log"), "n_log != the plane-free run's"
+                             main["cs_groups"])
+    assert system.n_log == main["cs_n_log"], "n_log != the plane-free run's"
     report = dict(crash.calls[0][1])
     restaged = report.pop("restaged")
     report.update(n_restaged=len(restaged), restaged=json_digest(restaged))
@@ -2312,6 +2373,185 @@ def export_phase(sc, main):
     return launches
 
 
+def _device_events(prof):
+    """The device's own events in a torch.profiler trace (kernels, copies,
+    fills): a host op's device time repeats what its kernels took, and the
+    profiler's activity-buffer bookkeeping is not the program's."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")]
+
+
+def _chaos_run(dev, sc, name, main, profiled=False):
+    """One run of the chaos phase, held to ``CHAOS_PIN[name]``: the replay
+    (B1 on the fleet window of 8) with each dispatch's harness work timed,
+    ``finish()``, the twin at the applied configs (lossy runs), B1 of the
+    churn window against the plain version (lossy cs), the mask query on
+    the device.  ``profiled`` runs the replay under torch.profiler for the
+    device's busy share.  Returns (B1 launches, max_abs_err)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.kernels.sketch_update import fleet as FK
+    from repro_torch.net.simulator import rmse
+    from repro_torch.runtime import (ChaosHarness, DurableExportPlane,
+                                     VersionedControlPlane)
+
+    rep, keys, truth, paths = sc["rep"], sc["keys"], sc["truth"], sc["paths"]
+    kind = name.split()[-1]
+    lossy = name != "lossless cs"
+    pin = CHAOS_PIN[name]
+    system = DiSketchSystem(sc["mems"], kind, rho_target=RHO[kind],
+                            log2_te=LOG2_TE)
+    fleet = system.fleet
+    export_ch, ctrl_ch = (lossy_export(), lossy_ctrl()) if lossy else \
+        ((), ())
+    h = ChaosHarness(VersionedControlPlane(DurableExportPlane(
+        system, *export_ch, max_retries=CHAOS_MAX_RETRIES,
+        steps_per_dispatch=0), *ctrl_ch),
+        steps_per_dispatch=CHAOS_STEPS if lossy else 4,
+        crash_every=CHAOS_CRASH_EVERY if lossy else 0)
+    after = h._after_dispatch = _Timed(h._after_dispatch)
+    failures = churn_schedule() if lossy else None
+    busy = ""
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            counts, host_s, _ = _replay(rep, h, window=WINDOW,
+                                        failures=failures)
+        on_dev = _device_events(prof)
+        busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+        top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:3]
+        busy = (f"; under torch.profiler, device busy {busy_ms:.3f} ms "
+                f"({100 * busy_ms / (host_s * 1e3):.2f}% of the replay's "
+                f"wall), led by " + ", ".join(
+                    f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                    f"{e.key[:48]}" for e in top))
+    else:
+        counts, host_s, _ = _replay(rep, h, window=WINDOW, failures=failures)
+    assert counts["fleet_ragged"] > 0 and sum(counts.values()) == \
+        counts["fleet_ragged"], counts
+    launches = counts["fleet_ragged"]
+    f0 = time.perf_counter()
+    report = h.finish()                 # the partition and the ledger
+    finish_s = time.perf_counter() - f0
+    assert json.loads(json.dumps(report)) == pin["report"], \
+        f"chaos {name} report {report} != the reference's {pin['report']}"
+    assert json_digest(h.crash_log) == pin["crash_log"], \
+        f"chaos {name} crash log {json_digest(h.crash_log)} != the reference's"
+    _pinned_digest(f"chaos {name} n trajectory", system.n_log, pin["n_log"])
+    err, extra = 0.0, ""
+    if not lossy:
+        assert report["staged"] == N_EPOCHS * len(sc["mems"])
+        n_groups = _groups_equal("chaos lossless cs",
+                                 _resident_groups(fleet),
+                                 main.pop("cs_groups"))
+        # the plane is the oracle loop one dispatch late: each window ran
+        # at the plane-free run's n after the window before
+        free, ctl = main.pop("cs_n_log"), h.control
+        for d in range(N_EPOCHS // WINDOW):
+            start = free[d * WINDOW - 1] if d else {sw: 1 for sw in free[0]}
+            assert ctl.applied_log[d] == start, d
+            assert ctl.intent_log[d] == free[(d + 1) * WINDOW - 1], d
+        assert system.n_log == [ctl.applied_log[e // WINDOW]
+                                for e in range(N_EPOCHS)]
+        extra = (f"; {n_groups} resident groups of the 4 windows == the "
+                 f"plane-free run's, n at every window boundary == its "
+                 f"n_log")
+    else:
+        d0, d1, victims = CHURN_DEAD
+        assert system._dead_at == {e: frozenset(victims)
+                                   for e in range(d0, d1)}
+        lost = {e: sorted(fleet.frag_order[i] for i in v)
+                for e, v in fleet._lost.items() if v}
+        assert lost == CHURN_LOST, lost
+        reset_counts()
+        t0 = time.perf_counter()
+        n_cells = h.verify_config_twin(lambda: DiSketchSystem(
+            sc["mems"], kind, rho_target=RHO[kind], log2_te=LOG2_TE))
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        twin_launches = read_counts()["fleet_ragged"]
+        assert n_cells == report["applied"] and twin_launches > 0
+        launches += twin_launches
+        extra = (f"; twin at the applied configs {twin_s:.2f} s (B1 "
+                 f"launches {twin_launches}), its {n_cells} applied cells "
+                 f"== the run's bit for bit")
+        if kind == "cs":
+            # B1 of the churn window against the plain version: its lost
+            # rows were zeroed after B1, its dead rows are value 0, every
+            # other cell was held back and delivered exactly
+            e0 = CHURN_EPOCHS[0]
+            pos = {sw: i for i, sw in enumerate(fleet.frag_order)}
+            gone = {(e - e0, pos[sw]) for e, sws in CHURN_LOST.items()
+                    for sw in sws}
+            gone |= {(e - e0, pos[sw]) for sw, e in h.export.lost_cells()
+                     if e in CHURN_EPOCHS}
+            for (args, kw), (rows, got) in zip(
+                    _window_groups(fleet, rep, e0, dead_at=system._dead_at),
+                    fleet._window_bufs[e0][0].device(), strict=True):
+                plain = FK.fleet_update_ragged_ref(
+                    *_to_device(args, dev), **kw).reshape(got.shape)
+                for e in range(got.shape[0]):
+                    for j, r in enumerate(rows):
+                        if (e, int(r)) in gone:
+                            plain[e, j] = 0
+                err = max(err, float((got - plain).abs().max()))
+                assert torch.equal(got, plain), "chaos window != plain"
+                del plain
+            extra += (f"; B1's churn window {e0} == plain (max_abs_err "
+                      f"{err})")
+    q0 = time.perf_counter()
+    est = h.query_flows(keys, paths, list(range(N_EPOCHS)), merge="fragment",
+                        failures="mask")
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - q0
+    assert est.shape == keys.shape and np.isfinite(est).all()
+    assert fleet.has_device_window(list(range(N_EPOCHS)))
+    err_rmse = rmse(est, truth)
+    _pinned(f"chaos {name} RMSE", err_rmse, pin["rmse"], PIN_RTOL)
+    if not lossy:
+        _pinned("chaos lossless cs RMSE", err_rmse,
+                RMSE_PIN[("cs", "window 8")], PIN_RTOL)
+    ms = [1e3 * t for t, _ in after.calls]
+    st = report["export"]
+    _log(f"chaos   {name} window {WINDOW}: replay wall {host_s:.2f} s, B1 "
+         f"launches {counts['fleet_ragged']}; harness (snapshot, "
+         f"{h.steps_per_dispatch} export rounds, crash, partition check) "
+         f"{', '.join(f'{m:.2f}' for m in ms)} ms a dispatch; finish() "
+         f"{1e3 * finish_s:.1f} ms{busy}; {report['staged']} staged, "
+         f"{report['applied']} applied, {len(report['lost'])} lost, "
+         f"{report['crashes']} crashes, stale epochs "
+         f"{report['n_stale_epochs']}, {report['n_directives']} directives, "
+         f"{report['n_clamps']} clamps; {st['now']} export rounds, "
+         f"{st['n_tx']} data messages{extra}; mask query {q_s:.2f} s, RMSE "
+         f"{err_rmse!r}; report, crash log, n_log and RMSE the reference's "
+         f"(CHAOS_PIN)")
+    return launches, err
+
+
+def chaos_phase(dev, sc, main):
+    """The chaos harness at the §6.1 setting on the fleet window of 8: the
+    loss-free cs stack against the plane-free window run (``main``), then
+    cs and cms with every failure plane armed, each held to the
+    reference's harness (``CHAOS_PIN``); cms runs under the profiler.
+    Returns what the kernel line needs."""
+    import torch
+
+    res = {"ragged": 0, "max_abs_err": 0.0}
+    for name in ("lossless cs", "cs", "cms"):
+        launches, err = _chaos_run(dev, sc, name, main,
+                                   profiled=name == "cms")
+        res["ragged"] += launches
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        torch.cuda.empty_cache()
+    _log(f"chaos   B1 launches added by the phase: {res['ragged']}")
+    return res
+
+
 def _b2_rows(params, signed):
     """``ops._launch`` keywords of the B2 loop's launches, one per row of
     an epoch's parameter table."""
@@ -2423,14 +2663,8 @@ def profile_replay(mems, rep, window=WINDOW, kind="cs"):
         rep.run(system, window=window)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - h0
-    events = prof.key_averages()
-    # Device activity (kernels, copies) is counted from the device's own
-    # events: a host op's device time repeats what its kernels took, and
-    # the profiler's activity-buffer bookkeeping is not the program's.
-    on_dev = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("Activity Buffer")]
-    on_host = [e for e in events
+    on_dev = _device_events(prof)
+    on_host = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CPU]
     device_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
     top_dev = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:5]
@@ -2593,16 +2827,17 @@ def main() -> int:
         churn = _phase(churn_phase, dev, sc)
         ctrl = _phase(control_phase, dev, sc, res)
         export = _phase(export_phase, sc, res)
+        chaos = _phase(chaos_phase, dev, sc, res)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
             ("fleet_ragged", "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
              + um_e["ragged"] + churn["ragged"] + ctrl["ragged"]
-             + export,
+             + export + chaos["ragged"],
              max(worst["fleet_ragged"], res["max_abs_err"],
                  um_w["max_abs_err"], churn["max_abs_err"],
-                 ctrl["max_abs_err"]), timing),
+                 ctrl["max_abs_err"], chaos["max_abs_err"]), timing),
             ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),

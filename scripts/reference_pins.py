@@ -1,6 +1,7 @@
 """The JAX reference's answers at chip_smoke.py's §6.1 setting: the values
 the smoke pins (``RHO["um"]``, ``RMSE_PIN``, ``AGG_RMSE_PIN``,
-``ENTROPY_PIN``, ``CHURN_PIN``, ``CONTROL_PIN``), computed on the CPU by
+``ENTROPY_PIN``, ``CHURN_PIN``, ``CONTROL_PIN``, ``EXPORT_PIN``,
+``CHAOS_PIN``), computed on the CPU by
 the reference's numpy paths (the loop backend, ``process_epoch``,
 ``query_window``) and, for the window-8 entropy at k_heavy 1024, its jnp
 device G-sum.
@@ -8,10 +9,10 @@ device G-sum.
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn, control, export (default: all).  Prints one ``name value`` line per
-result, then one JSON object.  All sections take a few minutes at this
+churn, control, export, chaos (default: all).  Prints one ``name value``
+line per result, then one JSON object.  All sections take a few minutes at this
 full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
-CPU, ``control`` under 45 s, ``export`` under 30 s.
+CPU, ``control`` under 45 s, ``export`` under 30 s, ``chaos`` under 60 s.
 
 The ``churn`` section runs the smoke's failure schedule
 (``churn_schedule``: 5 of 20 switches die at epoch 17 and return at 25,
@@ -42,6 +43,18 @@ message's fate depends on ``(seed, frag, epoch, seq)`` alone, so these
 protocol values are those of any backend that stages the same cells at
 the same rounds.  ``tests/test_torch_export.py`` holds the port's plane
 to the same oracle at a small size.
+
+The ``chaos`` section runs the reference's ``ChaosHarness`` around its
+``VersionedControlPlane`` around its ``DurableExportPlane`` around
+``ChurnWindowEmulation(export=True)``, driven window by window through
+``run_window``: cs over lossless channels, then cs and cms under
+``churn_schedule`` with ``lossy_ctrl``, ``lossy_export`` and a collector
+crash every 2 dispatches.  The emulation is a system the reference's
+planes wrap: the control plane hands each window the agents' applied
+configs, and the dead and lost cells stay out of ``records``, so the
+export plane stages the live cells only, as the port's fleet does.
+``tests/test_torch_chaos.py`` holds the port's harness to the same oracle
+at a small size.
 """
 import hashlib
 import json
@@ -63,6 +76,7 @@ from repro.net.simulator import (ComposedSchedule, FailureSchedule,
                                  Replayer, ResourcePressure, rmse)
 from repro.net.topology import FatTree, core_on_path
 from repro.net.traffic import gen_workload, gini_memories
+from repro.runtime.chaos import ChaosHarness
 from repro.runtime.control import VersionedControlPlane
 from repro.runtime.export import DurableExportPlane
 
@@ -72,7 +86,7 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window", "churn", "control", "export")
+            "um_window", "churn", "control", "export", "chaos")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 # the export phase: protocol rounds after each window dispatch, the
@@ -80,6 +94,11 @@ CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 # crashes, and the switch whose export messages the drop run loses
 EXPORT_STEPS, EXPORT_CKPT_EVERY, EXPORT_CRASH_AFTER = 8, 10, 8
 EXPORT_VICTIM = 16
+# the chaos phase's runs: (name, kind, lossy channels and churn_schedule(),
+# export rounds after each dispatch, a collector crash every N dispatches)
+CHAOS_RUNS = (("lossless cs", "cs", False, 4, 0),
+              ("cs", "cs", True, 6, 2), ("cms", "cms", True, 6, 2))
+CHAOS_MAX_RETRIES = 12
 
 out = {}
 
@@ -175,80 +194,143 @@ def json_digest(obj):
 
 
 class ChurnWindowEmulation:
-    """The fleet window path under churn, built from the reference's parts.
+    """The reference's fleet window path, built from its own parts, as a
+    system the reference's planes can wrap.
 
-    ``ctl`` is a reference ``DiSketchSystem(backend="loop")`` that carries
-    the control plane: its ``apply_event``, ``_apply_pending_resizes`` and
-    re-equalization run in the order of the reference's fleet
-    ``run_window``.  Each window runs ``process_epoch`` at the ``ns`` and
-    widths frozen at its start; a dead cell sketches nothing (the fleet
-    masks its packets to value 0), and a lost cell is zeroed after its PEB
-    is taken.  ``saved`` keeps the lost cells' counters, which parity
-    recovery must give back."""
+    ``ctl`` is a reference ``DiSketchSystem(backend="loop")`` (or
+    ``DiscoSystem``) that carries the control: its ``apply_event``,
+    ``_apply_pending_resizes`` and Eq. 6 run in the order of the
+    reference's fleet ``run_window`` (``core/disketch.py:296-341``).  Each
+    ``run_window`` runs ``process_epoch`` at the ``ns`` and widths frozen
+    at the window's start, after its first epoch's events: under a
+    ``VersionedControlPlane`` those are the agents' applied configs, the
+    plane's ``_frozen_ns``.  A dead cell sketches nothing (the fleet masks
+    its packets to value 0), a lost cell is zeroed after its PEB is taken,
+    and resizes inside a window wait for the next dispatch.  ``saved``
+    keeps the lost cells' counters, which parity recovery gives back.
 
-    def __init__(self, streams_of, mems, kind, rho, log2_te, n_epochs,
-                 window, schedule, parity_groups=None, subepoching=True,
-                 **sys_kw):
+    With ``export=True`` the dead and lost cells are kept out of
+    ``records``, so a ``DurableExportPlane`` around the
+    emulation stages only the live cells, as the fleet's plane does
+    (``frag_live``): the protocol depends only on which cells were staged
+    and when.  Its queries then support ``"mask"`` only.
+
+    The planes see ``fleet = None`` and take their loop-backend branches
+    (records popped and reinserted), so ``Replayer.run`` would run the
+    emulation epoch by epoch: drive it window by window through
+    ``run_window`` (``replay`` does)."""
+
+    fleet = None
+    backend = "fleet"
+    # what the planes read of the system, forwarded to ``ctl``
+    _FORWARDED = frozenset((
+        "records", "fragments", "ns", "dead", "clamp_log", "apply_event",
+        "n_log", "peb_log", "_peb_width", "_last_pebs", "_dead_at",
+        "subepoching", "rho_target"))
+
+    def __init__(self, mems, kind, rho, log2_te, parity_groups=None,
+                 subepoching=True, export=False, **sys_kw):
         self.kind = kind
+        self.log2_te = log2_te
         self.parity_groups = parity_groups
+        self.export = export
         self.ctl = (DiSketchSystem if subepoching else DiscoSystem)(
             mems, kind, rho_target=rho, log2_te=log2_te, **sys_kw)
-        ctl = self.ctl
+        self.lost, self.saved, self.ns_by_window = {}, {}, {}
+        self.last_observability = None
+
+    @classmethod
+    def replay(cls, streams_of, mems, kind, rho, log2_te, n_epochs, window,
+               schedule, **kw):
+        """An emulation run over ``n_epochs`` in windows of ``window``,
+        ``schedule`` advanced epoch by epoch."""
+        em = cls(mems, kind, rho, log2_te, **kw)
+        for e0 in range(0, n_epochs, window):
+            eps = range(e0, min(e0 + window, n_epochs))
+            em.run_window(e0, [streams_of(e) for e in eps],
+                          events_by_epoch=[schedule.advance(e) for e in eps])
+        return em
+
+    def __getattr__(self, name):
+        if name in ChurnWindowEmulation._FORWARDED:
+            return getattr(self.ctl, name)
+        raise AttributeError(name)
+
+    @property
+    def control_external(self):
+        return self.ctl.control_external
+
+    @control_external.setter
+    def control_external(self, value):
+        self.ctl.control_external = value
+
+    def run_epoch(self, epoch, streams, packet=None, events=None):
+        """One epoch as the fleet's per-epoch path runs it: a window of one
+        whose dead switches keep no record."""
+        self.run_window(epoch, [streams], events_by_epoch=[events or ()])
+        for sw in self.ctl._dead_at.get(epoch, ()):
+            self.ctl.records[epoch].pop(sw, None)
+
+    def run_window(self, epoch0, streams_list, packets=None,
+                   events_by_epoch=None):
+        ctl, log2_te = self.ctl, self.log2_te
         empty = SwitchStream(np.zeros(0, np.uint32), np.zeros(0, np.int64),
                              np.zeros(0, np.int64))
-        self.lost, self.saved, self.ns_by_window = {}, {}, {}
-        for e0 in range(0, n_epochs, window):
-            eps = list(range(e0, min(e0 + window, n_epochs)))
-            events = [schedule.advance(e) for e in eps]
-            ctl._apply_pending_resizes()
-            for ev in events[0]:
-                ctl.apply_event(ev)
-            frozen = (dict(ctl.ns) if subepoching
-                      else {sw: 1 for sw in ctl.fragments})
-            frags = dict(ctl.fragments)
-            self.ns_by_window[e0] = frozen
-            dead_sets, fail_pts = [frozenset(ctl.dead)], []
-            for k in range(1, len(eps)):
-                for ev in events[k]:
-                    if ev.kind == "fail" and ev.switch not in ctl.dead:
-                        fail_pts.append((k, ev.switch))
-                    ctl.apply_event(ev, defer_resize=True)
-                dead_sets.append(frozenset(ctl.dead))
-            lost_sets = [set() for _ in eps]
-            for k, sw in fail_pts:
-                for k2 in range(k):
-                    if sw not in dead_sets[k2]:
-                        lost_sets[k2].add(sw)
-            window_pebs = []
-            for k, e in enumerate(eps):
-                recs, pebs = {}, {}
-                for sw, cfg in frags.items():
-                    st = (empty if sw in dead_sets[k]
-                          else streams_of(e).get(sw, empty))
-                    rec = process_epoch(cfg, e, frozen[sw], st.keys,
-                                        st.values, st.ts, e << log2_te,
-                                        log2_te, single_hop=st.single_hop)
-                    if sw not in dead_sets[k]:
-                        pebs[sw] = REQ.peb_epoch(rec)
-                    if sw in lost_sets[k]:
-                        self.saved[(e, sw)] = rec.counters.copy()
-                        rec.counters[...] = 0
+        eps = list(range(epoch0, epoch0 + len(streams_list)))
+        events = (list(events_by_epoch) if events_by_epoch
+                  else [()] * len(eps))
+        ctl._apply_pending_resizes()
+        for ev in events[0]:
+            ctl.apply_event(ev)
+        frozen = (dict(ctl.ns) if ctl.subepoching
+                  else {sw: 1 for sw in ctl.fragments})
+        frags = dict(ctl.fragments)
+        self.ns_by_window[epoch0] = frozen
+        dead_sets, fail_pts = [frozenset(ctl.dead)], []
+        for k in range(1, len(eps)):
+            for ev in events[k]:
+                if ev.kind == "fail" and ev.switch not in ctl.dead:
+                    fail_pts.append((k, ev.switch))
+                ctl.apply_event(ev, defer_resize=True)
+            dead_sets.append(frozenset(ctl.dead))
+        lost_sets = [set() for _ in eps]
+        for k, sw in fail_pts:
+            for k2 in range(k):
+                if sw not in dead_sets[k2]:
+                    lost_sets[k2].add(sw)
+        window_pebs = []
+        for k, e in enumerate(eps):
+            recs, pebs = {}, {}
+            for sw, cfg in frags.items():
+                dead = sw in dead_sets[k]
+                st = empty if dead else streams_list[k].get(sw, empty)
+                rec = process_epoch(cfg, e, frozen[sw], st.keys, st.values,
+                                    st.ts, e << log2_te, log2_te,
+                                    single_hop=st.single_hop)
+                if not dead:
+                    pebs[sw] = REQ.peb_epoch(rec)
+                if sw in lost_sets[k]:
+                    self.saved[(e, sw)] = rec.counters.copy()
+                    rec.counters[...] = 0
+                if not (self.export and (dead or sw in lost_sets[k])):
                     recs[sw] = rec
-                if lost_sets[k]:
-                    self.lost[e] = set(lost_sets[k])
-                ctl.records[e] = recs
-                window_pebs.append(pebs)
-            # the reference's run_window tail: Eq. 6 replayed in order
-            for k, e in enumerate(eps):
-                if dead_sets[k]:
-                    ctl._dead_at[e] = dead_sets[k]
-                ctl.peb_log.append(window_pebs[k])
-                for sw in window_pebs[k]:
-                    ctl._peb_width[sw] = ctl.fragments[sw].width
-                if subepoching and not ctl.control_external:
-                    for sw, peb in window_pebs[k].items():
-                        ctl.ns[sw] = REQ.next_n(ctl.ns[sw], peb, rho)
-                ctl.n_log.append(dict(ctl.ns))
+            if lost_sets[k]:
+                self.lost[e] = set(lost_sets[k])
+            ctl.records[e] = recs
+            window_pebs.append(pebs)
+        # the reference's run_window tail: Eq. 6 replayed in order
+        for k, e in enumerate(eps):
+            if dead_sets[k]:
+                ctl._dead_at[e] = dead_sets[k]
+            else:
+                ctl._dead_at.pop(e, None)
+            ctl.peb_log.append(window_pebs[k])
+            for sw in window_pebs[k]:
+                ctl._peb_width[sw] = ctl.fragments[sw].width
+            if ctl.subepoching and not ctl.control_external:
+                for sw, peb in window_pebs[k].items():
+                    ctl.ns[sw] = REQ.next_n(ctl.ns[sw], peb, ctl.rho_target)
+            ctl.n_log.append(dict(ctl.ns))
 
     def recoverable(self):
         """``{epoch: [switch]}``: lost cells alone in their parity group."""
@@ -272,14 +354,40 @@ class ChurnWindowEmulation:
         return done
 
     def valid(self, sw, e):
-        return (sw not in self.ctl._dead_at.get(e, frozenset())
+        return (sw in self.ctl.records.get(e, ())
+                and sw not in self.ctl._dead_at.get(e, frozenset())
                 and sw not in self.lost.get(e, ()))
+
+    def observability(self, epochs):
+        """The fleet's ``observability``: per epoch, the cells that are
+        genuine observations now (not dead, not lost, not held back by a
+        pending export)."""
+        epochs = list(epochs)
+        per_epoch = {e: sum(1 for sw in self.ctl.records.get(e, {})
+                            if self.valid(sw, e)) for e in epochs}
+        obs, scale = RQ.window_observability(
+            [[None] * per_epoch[e] for e in epochs])
+        return {"epochs": len(epochs), "observable_epochs": obs,
+                "scale": scale, "observable_cells": sum(per_epoch.values()),
+                "total_cells": len(self.ctl.fragments) * len(epochs),
+                "per_epoch": per_epoch,
+                "config_clamps": list(self.ctl.clamp_log)}
+
+    def query_flows(self, keys, paths, epochs, merge="subepoch",
+                    failures="mask"):
+        """``query_flows`` with the system's signature."""
+        self.last_observability = self.observability(epochs)
+        return self.query(np.asarray(keys, np.uint32), paths, epochs,
+                          failures, merge=merge)
 
     def query(self, keys, paths, epochs, failures, merge="fragment"):
         """``query_flows`` of the fleet under ``failures``: per path group,
         ``query_window`` over the on-path records (all of them under
         "oblivious"; the valid ones, scaled by E / E_observable, under
         "mask"; "recover" recovers first)."""
+        if failures != "mask" and self.export:
+            raise ValueError("a held-back window is emulated under "
+                             "failures='mask' only")
         if failures == "recover":
             self.recover()
             failures = "mask"
@@ -414,6 +522,8 @@ def main(sections):
         control(wl, rep, mems, keys, truth, paths, epochs)
     if "export" in sections:
         export(rep, mems)
+    if "chaos" in sections:
+        chaos(rep, mems, keys, truth, paths, epochs)
     print(json.dumps(out))
 
 
@@ -441,9 +551,9 @@ def churn(wl, rep, mems, keys, truth, paths, epochs):
     groups = [list(range(i, i + PARITY_GROUP))
               for i in range(0, len(mems), PARITY_GROUP)]
     for kind in ("cs", "cms"):
-        em = ChurnWindowEmulation(rep.epoch_stream, mems, kind, RHO[kind],
-                                  LOG2_TE, N_EPOCHS, WINDOW,
-                                  churn_schedule(), parity_groups=groups)
+        em = ChurnWindowEmulation.replay(
+            rep.epoch_stream, mems, kind, RHO[kind], LOG2_TE, N_EPOCHS,
+            WINDOW, churn_schedule(), parity_groups=groups)
         save(f"churn window {kind} n_log", n_log_digest(em.ctl.n_log))
         save(f"churn window {kind} lost",
              {int(e): sorted(int(x) for x in sws)
@@ -538,6 +648,36 @@ def export(rep, mems):
     p.drain()
     save("export drop lost", sorted(p.lost_cells()))
     save("export drop stats", p.stats())
+
+
+def chaos(rep, mems, keys, truth, paths, epochs):
+    """The chaos phase's pins: the reference's ``ChaosHarness`` around its
+    ``VersionedControlPlane`` around its ``DurableExportPlane`` around
+    ``ChurnWindowEmulation(export=True)``, driven window by window
+    through ``run_window`` (its ``Replayer.run`` would dispatch a
+    fleet-less system once an epoch, and the harness counts dispatches
+    for its crashes and its stale ledger).  The lossless run has no
+    schedule; the lossy runs take ``churn_schedule()``, ``lossy_ctrl()``
+    and ``lossy_export()``."""
+    for name, kind, lossy, steps, crash_every in CHAOS_RUNS:
+        em = ChurnWindowEmulation(mems, kind, RHO[kind], LOG2_TE, export=True)
+        export_ch, ctrl_ch = (lossy_export(), lossy_ctrl()) if lossy else \
+            ((), ())
+        h = ChaosHarness(VersionedControlPlane(DurableExportPlane(
+            em, *export_ch, max_retries=CHAOS_MAX_RETRIES,
+            steps_per_dispatch=0), *ctrl_ch),
+            steps_per_dispatch=steps, crash_every=crash_every)
+        schedule = churn_schedule() if lossy else None
+        for e0 in range(0, N_EPOCHS, WINDOW):
+            es = range(e0, min(e0 + WINDOW, N_EPOCHS))
+            h.run_window(e0, [rep.epoch_stream(e) for e in es],
+                         events_by_epoch=None if schedule is None else
+                         [schedule.advance(e) for e in es])
+        save(f"chaos {name} report", json.loads(json.dumps(h.finish())))
+        save(f"chaos {name} crash_log", json_digest(h.crash_log))
+        save(f"chaos {name} n_log", n_log_digest(em.n_log))
+        save(f"chaos {name} rmse", rmse(h.query_flows(
+            keys, paths, epochs, merge="fragment", failures="mask"), truth))
 
 
 if __name__ == "__main__":

@@ -92,7 +92,7 @@ def emulate(events_by_epoch, kind="cms", rho=5.0, window=4, n_epochs=4,
         def advance(self, e):
             return list(events_by_epoch.get(e, ()))
 
-    return ChurnWindowEmulation(
+    return ChurnWindowEmulation.replay(
         lambda e: streams_for(e, 100 + e, RStream), MEMS, kind, rho,
         LOG2_TE, n_epochs, window, Scripted(), parity_groups=parity_groups,
         **kw)
@@ -792,9 +792,9 @@ def test_window_churn_replay_matches_reference_emulation(fat_tree, name):
                        fleet_kwargs={"parity_groups": groups}, **cfg_kw)
     trep = TS.Replayer(gen_workload(FatTree(4), **kw), 20)
     trep.run(s, window=4, failures=_fat_tree_schedule(TS))
-    em = ChurnWindowEmulation(rrep.epoch_stream, mems, kind, rho, 12, 8, 4,
-                              _fat_tree_schedule(RS), parity_groups=groups,
-                              **cfg_kw)
+    em = ChurnWindowEmulation.replay(rrep.epoch_stream, mems, kind, rho, 12,
+                                     8, 4, _fat_tree_schedule(RS),
+                                     parity_groups=groups, **cfg_kw)
     fleet = s.fleet
     epochs = list(range(8))
     assert s.n_log == em.ctl.n_log and s.ns == em.ctl.ns

@@ -22,6 +22,9 @@ The parity tests compare the applied and intent logs, the stale epochs,
 the clamp log, the version lag, ``stats()``, every agent and sketch
 counter exactly, and ``query_flows`` to 1e-6 relative.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -41,6 +44,9 @@ from repro_torch.net.traffic import gen_workload
 from repro_torch.runtime import (ConfigAck, ConfigDirective,
                                  SwitchConfigAgent, VersionedControlPlane)
 from repro_torch.runtime.control import _pow2_clamp
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+from reference_pins import ChurnWindowEmulation  # noqa: E402
 
 SW = 4
 LOG2_TE = 10
@@ -68,9 +74,15 @@ STREAMS = [streams_for(e, 300 + e) for e in range(N_EPOCHS)]
 R_STREAMS = [streams_for(e, 300 + e, RStream) for e in range(N_EPOCHS)]
 
 
-def build(backend="loop"):
-    kw = dict(device="cpu") if backend == "fleet" else {}
-    return DiSketchSystem(MEMS, "cms", rho_target=RHO, log2_te=LOG2_TE,
+# the sketch kinds of the parity cases: UnivMon with 4 levels
+KINDS = {"cms": ("cms", {}), "cs": ("cs", {}), "um4": ("um", {"n_levels": 4})}
+
+
+def build(backend="loop", kind="cms"):
+    kind, kw = KINDS[kind]
+    if backend == "fleet":
+        kw = dict(kw, device="cpu")
+    return DiSketchSystem(MEMS, kind, rho_target=RHO, log2_te=LOG2_TE,
                           backend=backend, **kw)
 
 
@@ -305,8 +317,9 @@ def test_recover_syncs_agent_and_controller():
 
 # -- parity with the reference's loop-backend plane ---------------------------
 
-def ref_build():
-    return RSystem(MEMS, "cms", rho_target=RHO, log2_te=LOG2_TE)
+def ref_build(kind="cms"):
+    kind, kw = KINDS[kind]
+    return RSystem(MEMS, kind, rho_target=RHO, log2_te=LOG2_TE, **kw)
 
 
 def schedule(mod):
@@ -371,12 +384,14 @@ def assert_query_parity(got, want, merge, epochs=EPOCHS):
         assert got.last_observability[k] == want.last_observability[k], k
 
 
+@pytest.mark.parametrize("kind", sorted(KINDS))
 @pytest.mark.parametrize("churn", [False, True], ids=["steady", "churn"])
 @pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
 @pytest.mark.parametrize("backend", ["fleet", "loop"])
-def test_per_epoch_plane_matches_reference(backend, lossy, churn):
-    got = VersionedControlPlane(build(backend), *channels(lossy, LossyChannel))
-    want = RPlane(ref_build(), *channels(lossy, RChannel))
+def test_per_epoch_plane_matches_reference(backend, lossy, churn, kind):
+    got = VersionedControlPlane(build(backend, kind),
+                                *channels(lossy, LossyChannel))
+    want = RPlane(ref_build(kind), *channels(lossy, RChannel))
     t_sched, r_sched = (schedule(TS), schedule(RS)) if churn else (None,
                                                                     None)
     for e in EPOCHS:
@@ -395,13 +410,14 @@ def test_per_epoch_plane_matches_reference(backend, lossy, churn):
     assert set(got.version_lag().values()) == {0}
 
 
+@pytest.mark.parametrize("kind", sorted(KINDS))
 @pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
-def test_window_plane_matches_reference(lossy):
+def test_window_plane_matches_reference(lossy, kind):
     """Windows of 2 on the port's fleet against the reference's loop plane
     with ``run_window`` called on it directly (no event in a window)."""
-    got = VersionedControlPlane(build("fleet"),
+    got = VersionedControlPlane(build("fleet", kind),
                                 *channels(lossy, LossyChannel))
-    want = RPlane(ref_build(), *channels(lossy, RChannel))
+    want = RPlane(ref_build(kind), *channels(lossy, RChannel))
     for e0 in range(0, N_EPOCHS, 2):
         got.run_window(e0, STREAMS[e0:e0 + 2])
         want.run_window(e0, R_STREAMS[e0:e0 + 2])
@@ -413,6 +429,65 @@ def test_window_plane_matches_reference(lossy):
     assert_query_parity(got, want, "subepoch")
     assert got.drain() == want.drain()
     assert_plane_parity(got, want)
+
+
+@pytest.mark.parametrize("window", [3, 4])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
+def test_window_plane_with_churn_inside_windows_matches_emulation(
+        lossy, kind, window):
+    """Windows of 3 and 4 on the port's fleet under ``schedule``: switch 1
+    dies at epoch 2, inside the first window, which loses its earlier
+    epochs there; resource pressure falls on any epoch, its resizes wait
+    for the next dispatch.  The oracle is the reference's plane around
+    ``ChurnWindowEmulation``, the reference's fleet window path rebuilt
+    from its parts, each window handed the agents' applied configs by the
+    plane (``_frozen_ns``)."""
+    got = VersionedControlPlane(build("fleet", kind),
+                                *channels(lossy, LossyChannel))
+    name, kw = KINDS[kind]
+    em = ChurnWindowEmulation(MEMS, name, RHO, LOG2_TE, **kw)
+    want = RPlane(em, *channels(lossy, RChannel))
+    t_sched, r_sched = schedule(TS), schedule(RS)
+    for e0 in range(0, N_EPOCHS, window):
+        es = range(e0, min(e0 + window, N_EPOCHS))
+        got.run_window(e0, STREAMS[e0:e0 + window],
+                       events_by_epoch=[t_sched.advance(e) for e in es])
+        want.run_window(e0, R_STREAMS[e0:e0 + window],
+                        events_by_epoch=[r_sched.advance(e) for e in es])
+        assert em.ns_by_window[e0] == want.applied_log[-1]
+    assert any(ev.epoch % window for ev in t_sched.log)
+    assert {e: {got.system.fleet.frag_order[i] for i in v}
+            for e, v in got.system.fleet._lost.items() if v} == em.lost \
+        == {0: {1}, 1: {1}}
+    assert got.n_nacks_tx > 0           # the pressure reached the agents
+    for merge in ("fragment", "subepoch"):
+        assert_query_parity(got, want, merge)
+    assert_plane_parity(got, want)
+    assert got.drain() == want.drain()
+    assert_plane_parity(got, want)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
+def test_per_epoch_plane_under_churn_matches_emulation(lossy, kind):
+    """Per epoch on the port's fleet under ``schedule``, against the
+    reference's plane around ``ChurnWindowEmulation.run_epoch`` (a window
+    of one whose dead switches keep no record, as the fleet's per-epoch
+    path keeps none)."""
+    got = VersionedControlPlane(build("fleet", kind),
+                                *channels(lossy, LossyChannel))
+    name, kw = KINDS[kind]
+    want = RPlane(ChurnWindowEmulation(MEMS, name, RHO, LOG2_TE, **kw),
+                  *channels(lossy, RChannel))
+    t_sched, r_sched = schedule(TS), schedule(RS)
+    for e in EPOCHS:
+        got.run_epoch(e, STREAMS[e], events=t_sched.advance(e))
+        want.run_epoch(e, R_STREAMS[e], events=r_sched.advance(e))
+    assert got.system._dead_at and got.n_nacks_tx > 0
+    assert_plane_parity(got, want)
+    for merge in ("subepoch", "fragment"):
+        assert_query_parity(got, want, merge)
 
 
 def test_control_external_off_by_default_keeps_the_oracle():

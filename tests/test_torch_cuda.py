@@ -515,3 +515,56 @@ def test_export_plane_on_card(cuda_device, tmp_path):
                 free.fleet._window_bufs[e0][0].device(), strict=True):
             assert c.is_cuda and torch.equal(c, c_free)
             assert torch.equal(c.cpu(), c_cpu)
+
+
+def test_chaos_harness_on_card(cuda_device):
+    """The chaos harness (control over export over the fleet window, churn
+    inside a window with resource pressure, lossy channels, collector
+    crashes) runs on the card exactly as on the CPU: the same report and
+    crash log, and every applied cell equal; the twin holds on both."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.channel import LossyChannel
+    from repro_torch.net.simulator import (ComposedSchedule, FailureSchedule,
+                                           ResourcePressure)
+    from repro_torch.runtime import (ChaosHarness, DurableExportPlane,
+                                     VersionedControlPlane)
+
+    mems = {sw: 256 << (sw % 4) for sw in range(6)}
+
+    def build(dev):
+        return DiSketchSystem(mems, "cms", rho_target=0.5, log2_te=10,
+                              device=dev)
+
+    harnesses = []
+    before = FK.fleet_update_ragged.launches
+    for dev in (cuda_device, "cpu"):
+        schedule = ComposedSchedule([
+            FailureSchedule(6, downs={2: (3, 6)}),
+            ResourcePressure(6, horizon=8, seed=5, p_grab=0.3)])
+        h = ChaosHarness(VersionedControlPlane(
+            DurableExportPlane(
+                build(dev),
+                LossyChannel(p_drop=0.3, p_dup=0.2, p_reorder=0.3,
+                             delay=(0, 2), seed=9),
+                LossyChannel(p_drop=0.15, p_dup=0.2, delay=(0, 1), seed=10),
+                max_retries=12, steps_per_dispatch=0),
+            LossyChannel(p_drop=0.4, p_dup=0.2, p_reorder=0.3, delay=(0, 1),
+                         seed=17),
+            LossyChannel(p_drop=0.2, p_dup=0.2, delay=(0, 1), seed=18)),
+            steps_per_dispatch=6, crash_every=2)
+        for e0 in range(0, 8, 2):
+            es = (e0, e0 + 1)
+            h.run_window(e0, [_churn_streams(e) for e in es],
+                         events_by_epoch=[schedule.advance(e) for e in es])
+        harnesses.append((h, h.finish()))
+        assert h.verify_config_twin(lambda: build(dev)) > 0
+    assert FK.fleet_update_ragged.launches > before
+    (card, report), (cpu, cpu_report) = harnesses
+    assert report == cpu_report and report["crashes"] == 2
+    assert card.crash_log == cpu.crash_log
+    assert card.system.fleet._lost and card.system.fleet.device.type == "cuda"
+    applied = sorted(card.export.collector.applied)
+    assert applied == sorted(cpu.export.collector.applied)
+    for sw, e in applied:
+        np.testing.assert_array_equal(card.fleet.cell_counters(e, sw),
+                                      cpu.fleet.cell_counters(e, sw))
