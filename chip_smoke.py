@@ -53,7 +53,14 @@ full-scale setting:
   every failure plane armed at once (churn inside a window, resource
   pressure, lossy export with collector crashes, lossy control), its
   invariants machine-checked, every applied cell equal to a twin run at
-  the applied configs, B1's churn window held to the plain version.
+  the applied configs, B1's churn window held to the plain version;
+* the sharded fleet (``DiSketchSystem(..., mesh=make_switch_mesh(4,
+  devices=[card] * 4))``, 4 shards of 5 fragments on this card): window 8
+  for cs, cms, UnivMon and cs under churn with parity groups of 5, each
+  beside its single-device twin, every cell and every query bit for bit
+  equal to the twin's, one window's per-shard B1 groups held to the
+  plain version, and the bytes of the estimate slices the query gather
+  hands to the merge device.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
@@ -166,6 +173,10 @@ CHURN_N_LOG_PIN = {"window cs": "c14bdbb7a67aabb1",
 CHURN_DEAD = (17, 25, [1, 3, 4, 12, 19])
 CHURN_LOST = {16: [1, 3, 4, 12, 19]}
 CHURN_RECOVERABLE = {16: [12, 19]}
+# The sharded phase: the window-8 runs on a mesh of N_SHARDS shards of
+# 5 fragments, all on this card (launch.mesh.make_switch_mesh(devices=)),
+# each held bit for bit to its single-device twin.
+N_SHARDS = 4
 # The versioned control plane (scripts/reference_pins.py control): the
 # reference's VersionedControlPlane around its loop backend over the lossy
 # channels of lossy_ctrl() below, with run_window called on it directly for
@@ -786,9 +797,9 @@ def kernel_phase_dense(dev) -> float:
 def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
     """The grouped launches of the ``n_epochs`` epochs from ``e0`` (a
     window, or one epoch of the per-epoch path) exactly as the fleet
-    runner makes them: ``[(args, kw)]`` per distinct n_sub, the segments
-    of the switches dead in an epoch (``dead_at``: {epoch: switches})
-    masked to value 0."""
+    runner makes them: ``[(args, kw)]`` per distinct n_sub (of each shard,
+    shard by shard, on a mesh), the segments of the switches dead in an
+    epoch (``dead_at``: {epoch: switches}) masked to value 0."""
     from repro_torch.core.fleet import (fold_packet_flags,
                                         mask_fragment_values, pack_csr)
     from repro_torch.kernels.sketch_update import fleet as FK
@@ -805,16 +816,18 @@ def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
     nsub_f = params[:n_frags * L:L, FK.PARAM_N_SUB]
     width_f = params[:n_frags * L:L, FK.PARAM_WIDTH]
     groups = []
-    for n in np.unique(nsub_f):
-        idx = np.flatnonzero(nsub_f == n)
-        rows = ((np.arange(len(es))[:, None] * n_frags + idx[None, :])
-                .ravel()[:, None] * L + np.arange(L)[None, :]).ravel()
-        keys, vals, ts, bf = pack_csr([p.select(idx) for p in packets],
-                                      fleet.blk)
-        groups.append(((keys, vals, ts, params[rows], bf), dict(
-            n_sub_max=int(n), width_max=int(width_f[idx].max()),
-            log2_te=fleet.log2_te, signed=fleet.kind in ("cs", "um"),
-            blk=fleet.blk, n_levels=L, with_mitigation=fleet.mitigation)))
+    for lo, hi in fleet._shard_frag_bounds or [(0, n_frags)]:
+        for n in np.unique(nsub_f[lo:hi]):
+            idx = lo + np.flatnonzero(nsub_f[lo:hi] == n)
+            rows = ((np.arange(len(es))[:, None] * n_frags + idx[None, :])
+                    .ravel()[:, None] * L + np.arange(L)[None, :]).ravel()
+            keys, vals, ts, bf = pack_csr([p.select(idx) for p in packets],
+                                          fleet.blk)
+            groups.append(((keys, vals, ts, params[rows], bf), dict(
+                n_sub_max=int(n), width_max=int(width_f[idx].max()),
+                log2_te=fleet.log2_te, signed=fleet.kind in ("cs", "um"),
+                blk=fleet.blk, n_levels=L,
+                with_mitigation=fleet.mitigation)))
     return groups
 
 
@@ -2552,6 +2565,279 @@ def chaos_phase(dev, sc, main):
     return res
 
 
+def _shard_launches(fleet):
+    """B1 launches of a sharded window-8 replay: one per distinct n_sub of
+    each non-empty shard in each window."""
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    L = fleet.n_levels
+    return sum(len(np.unique(fleet._params_log[e0][lo * L:hi * L,
+                                                   FK.PARAM_N_SUB]))
+               for e0 in range(0, N_EPOCHS, WINDOW)
+               for lo, hi in fleet._shard_frag_bounds if lo < hi)
+
+
+class _GatherMeter:
+    """Counts the bytes of the ``(E, R_g, K)`` slices that
+    ``engine._all_gather_rows`` hands to the merge device while it is
+    installed (``with``; the counts add up over several ``with``s).  On
+    one card the copy is a no-op; across cards these bytes would cross."""
+
+    def __init__(self):
+        self.bytes = self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.kernels.sketch_query import engine
+
+        self.engine, self.copy = engine, engine._all_gather_rows
+
+        def meter(part, dev):
+            self.bytes += part.numel() * part.element_size()
+            self.calls += 1
+            return self.copy(part, dev)
+
+        engine._all_gather_rows = meter
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._all_gather_rows = self.copy
+
+
+def _cells_equal(sharded, twin, what):
+    """Every retained (epoch, switch) cell's live block of the sharded
+    fleet ``torch.equal`` to the twin's, on the card; each sharded group
+    holds one shard's rows.  Returns the cells' count."""
+    import torch
+
+    L = sharded.n_levels
+    owner = np.concatenate([[s] * (hi - lo) for s, (lo, hi) in
+                            enumerate(sharded._shard_frag_bounds)
+                            if lo < hi])
+    for buf in {id(b): b for b, _ in sharded._window_bufs.values()}.values():
+        for rows, c in buf.device():
+            assert c.is_cuda and len(set(owner[rows // L])) == 1, \
+                f"{what}: a group spans shards"
+    n = 0
+    for e in sorted(twin._window_bufs):
+        (bs, i_s), (bt, i_t) = sharded._window_bufs[e], twin._window_bufs[e]
+        for i in range(len(twin.frag_order)):
+            shape = twin._block_shape(twin._params_log[e], i)
+            a = bs.block(i_s, i * L, L, *shape)
+            b = bt.block(i_t, i * L, L, *shape)
+            assert a.is_cuda and torch.equal(a, b), \
+                f"{what}: cell ({e}, {twin.frag_order[i]}) != the twin's"
+            n += 1
+    return n
+
+
+def _held_to_plain(fleet, rep, dev, what, e0=WINDOW):
+    """Window ``e0``'s per-shard groups against the plain version on the
+    card: the max abs error (0, or the check fails)."""
+    import torch
+
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    err = 0.0
+    for (args, kw), (_, got) in zip(_window_groups(fleet, rep, e0),
+                                    fleet._window_bufs[e0][0].device(),
+                                    strict=True):
+        plain = FK.fleet_update_ragged_ref(*_to_device(args, dev), **kw)
+        got = got.reshape(plain.shape)
+        err = max(err, float((got - plain).abs().max()))
+        assert torch.equal(got, plain), f"{what}: shard group != plain"
+        del plain
+    return err
+
+
+def _sharded_pair(sc, kind, mesh, schedule=None, **kw):
+    """The twin (one device) and the sharded system replayed window by
+    window (under a fresh ``schedule()`` each, if given), the launch
+    counters reset before and read after each: ``{"twin"|"sharded":
+    (system, B1 launches, host s)}``."""
+    from repro_torch.core.disketch import DiSketchSystem
+
+    out = {}
+    for name, where in (("twin", dict(device=mesh.devices[0])),
+                        ("sharded", dict(mesh=mesh))):
+        system = DiSketchSystem(sc["mems"], kind, rho_target=RHO[kind],
+                                log2_te=LOG2_TE, **where, **kw)
+        counts, host_s, _ = _replay(sc["rep"], system, window=WINDOW,
+                                    failures=schedule and schedule())
+        assert sum(counts.values()) == counts["fleet_ragged"] > 0, counts
+        out[name] = (system, counts["fleet_ragged"], host_s)
+    sharded, twin = out["sharded"][0], out["twin"][0]
+    want = _shard_launches(sharded.fleet)
+    assert out["sharded"][1] == want >= out["twin"][1], \
+        (out["sharded"][1], want, out["twin"][1])
+    assert sharded.n_log == twin.n_log, f"sharded {kind}: n trajectory"
+    return out
+
+
+def _timed_query(fn, *args, **kw):
+    import torch
+
+    q0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - q0
+
+
+def _sharded_line(what, runs, q_s, meter, extra=""):
+    """One timing line of the sharded phase."""
+    (sh, sh_l, sh_s), (tw, tw_l, tw_s) = runs["sharded"], runs["twin"]
+    resident = {name: sum(c.numel() * 4 for b in {
+        id(b): b for b, _ in system.fleet._window_bufs.values()}.values()
+        for _, c in b.device() or ()) for name, system in (("sharded", sh),
+                                                           ("twin", tw))}
+    _log(f"sharded {what} [{_nvidia_smi()}]: replay {sh_s:.2f} s, B1 "
+         f"launches {sh_l} (per shard and n_sub) against the twin's "
+         f"{tw_s:.2f} s, {tw_l}; queries {q_s['sharded']:.2f} s against "
+         f"{q_s['twin']:.2f} s; the gather handed {meter.bytes} B in "
+         f"{meter.calls} (E, R_g, K) slices to the merge device, against "
+         f"{resident['sharded']} B of resident groups (the twin's "
+         f"{resident['twin']} B){extra}")
+
+
+def _sharded_window(dev, sc, kind, mesh):
+    """cs or cms, window 8, sharded beside its single-device twin: every
+    cell, one window's per-shard groups against the plain version, and
+    all 5-hop flows (``RMSE_PIN``)."""
+    from repro_torch.net.simulator import rmse
+
+    keys, paths = sc["keys"], sc["paths"]
+    runs = _sharded_pair(sc, kind, mesh)
+    sharded, twin = runs["sharded"][0], runs["twin"][0]
+    cells = _cells_equal(sharded.fleet, twin.fleet, f"sharded {kind}")
+    err = _held_to_plain(sharded.fleet, sc["rep"], dev, f"sharded {kind}")
+    q_s, est, meter = {}, {}, _GatherMeter()
+    with meter:
+        est["sharded"], q_s["sharded"] = _timed_query(
+            sharded.query_flows, keys, paths, range(N_EPOCHS),
+            merge="fragment")
+    est["twin"], q_s["twin"] = _timed_query(
+        twin.query_flows, keys, paths, range(N_EPOCHS), merge="fragment")
+    assert np.array_equal(est["sharded"], est["twin"]), \
+        f"sharded {kind}: estimates != the twin's"
+    err_rmse = rmse(est["sharded"], sc["truth"])
+    _pinned(f"sharded {kind} window 8 RMSE", err_rmse,
+            RMSE_PIN[(kind, "window 8")], PIN_RTOL)
+    _sharded_line(f"{kind} window {WINDOW}", runs, q_s, meter,
+                  f"; {cells} cells == the twin's, window {WINDOW}'s shard "
+                  f"groups == plain (max_abs_err {err}); {len(keys)} 5-hop "
+                  f"flows == the twin's, RMSE {err_rmse!r} (pinned)")
+    return runs["sharded"][1], err
+
+
+def _sharded_univmon(dev, sc, mesh):
+    """UnivMon (16 levels), window 8, sharded beside its twin: every cell,
+    window 8's per-shard level groups against the plain version, the
+    per-level estimates of all flows, and the entropy (``ENTROPY_PIN``)."""
+    wl = sc["wl"]
+    runs = _sharded_pair(sc, "um", mesh, n_levels=N_LEVELS)
+    sharded, twin = runs["sharded"][0], runs["twin"][0]
+    cells = _cells_equal(sharded.fleet, twin.fleet, "sharded um")
+    err = _held_to_plain(sharded.fleet, sc["rep"], dev, "sharded um")
+    q_s, ests, ent, meters = {}, {}, {}, {}
+    total = float(len(wl.pkt_ts))
+    for name, system in (("sharded", sharded), ("twin", twin)):
+        # the entropy's own per-level estimates: one (L, K_path) call of
+        # um_level_window_query per path group, kept as they come
+        level = _Timed(system.fleet.um_level_window_query)
+        system.fleet.um_level_window_query = level
+        try:
+            with _GatherMeter() as meters[name]:
+                ent[name], q_s[name] = _timed_query(
+                    system.query_entropy, wl.keys, wl.paths,
+                    range(N_EPOCHS), total, n_levels=N_LEVELS,
+                    level_seed=LEVEL_SEED, merge="fragment")
+        finally:
+            del system.fleet.um_level_window_query
+        ests[name] = np.concatenate([out for _, out in level.calls], axis=1)
+        assert ests[name].shape == (N_LEVELS, len(wl.keys))
+    assert np.array_equal(ests["sharded"], ests["twin"]), \
+        "sharded um: per-level estimates != the twin's"
+    assert ent["sharded"] == ent["twin"], ent
+    _pinned("sharded um window 8 entropy (fragment merge)", ent["sharded"],
+            ENTROPY_PIN["window 8 fragment k_heavy 1024"], PIN_RTOL_F32)
+    _sharded_line(f"um window {WINDOW} ({N_LEVELS} levels)", runs, q_s,
+                  meters["sharded"],
+                  f"; {cells} cells == the twin's, window {WINDOW}'s shard "
+                  f"level groups == plain (max_abs_err {err}); (L, K) "
+                  f"estimates of {len(wl.keys)} flows == the twin's; "
+                  f"entropy {ent['sharded']!r} == the twin's (pinned)")
+    return runs["sharded"][1], err
+
+
+def _sharded_churn(sc, mesh):
+    """cs, window 8, under ``churn_schedule()`` with parity groups of 5
+    (shard-local for 4 shards of 5), sharded beside its twin: the lost and
+    recoverable cells, ``recover()``, every cell after recovery, and all
+    5-hop flows under "mask" and "recover" (``CHURN_PIN``)."""
+    from repro_torch.core.fleet import parity_groups_chunked
+    from repro_torch.net.simulator import rmse
+
+    keys, paths = sc["keys"], sc["paths"]
+    groups = parity_groups_chunked(range(len(sc["mems"])), PARITY_GROUP)
+    runs = _sharded_pair(sc, "cs", mesh, schedule=churn_schedule,
+                         fleet_kwargs={"parity_groups": groups})
+    sharded, twin = runs["sharded"][0], runs["twin"][0]
+    assert sharded._dead_at == twin._dead_at
+    assert sharded.fleet._lost == twin.fleet._lost
+    assert sharded.fleet.recoverable() == twin.fleet.recoverable() \
+        == CHURN_RECOVERABLE, sharded.fleet.recoverable()
+    q_s, rmses, meter = {"sharded": 0.0, "twin": 0.0}, {}, _GatherMeter()
+    for failures in ("mask", "recover"):
+        if failures == "recover":
+            rec = {n: r[0].fleet.recover() for n, r in runs.items()}
+            assert rec["sharded"] == rec["twin"] == CHURN_RECOVERABLE, rec
+        est = {}
+        for name, (system, _, _) in runs.items():
+            with meter if name == "sharded" else _GatherMeter():
+                est[name], s = _timed_query(
+                    system.query_flows, keys, paths, range(N_EPOCHS),
+                    merge="fragment", failures=failures)
+            q_s[name] += s
+        assert np.array_equal(est["sharded"], est["twin"]), failures
+        rmses[failures] = rmse(est["sharded"], sc["truth"])
+        _pinned(f"sharded churn cs {failures} RMSE", rmses[failures],
+                CHURN_PIN[("cs", failures)], PIN_RTOL)
+    cells = _cells_equal(sharded.fleet, twin.fleet, "sharded churn cs")
+    _sharded_line(f"churn cs window {WINDOW}", runs, q_s, meter,
+                  f"; lost {CHURN_LOST}, recovered {CHURN_RECOVERABLE} == "
+                  f"the twin's; {cells} cells == the twin's after recovery;"
+                  f" RMSE mask {rmses['mask']!r}, recover "
+                  f"{rmses['recover']!r} == the twin's (pinned)")
+    return runs["sharded"][1]
+
+
+def sharded_phase(dev, sc):
+    """The sharded fleet at the §6.1 setting: ``N_SHARDS`` shards of 5
+    fragments on this card, each run beside its single-device twin (cs,
+    cms, UnivMon, cs under churn).  Returns what the kernel line needs."""
+    import torch
+
+    from repro_torch.launch import make_switch_mesh, shard_frag_bounds
+
+    mesh = make_switch_mesh(N_SHARDS, devices=[dev] * N_SHARDS)
+    _log(f"sharded mesh: {N_SHARDS} shards on "
+         f"{torch.cuda.device_count()} device(s), all on {mesh.devices[0]}; "
+         f"fragment blocks {shard_frag_bounds(len(sc['mems']), N_SHARDS)}")
+    res = {"ragged": 0, "max_abs_err": 0.0}
+    for kind in ("cs", "cms"):
+        launches, err = _sharded_window(dev, sc, kind, mesh)
+        res["ragged"] += launches
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        torch.cuda.empty_cache()
+    launches, err = _sharded_univmon(dev, sc, mesh)
+    res["ragged"] += launches
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    res["ragged"] += _sharded_churn(sc, mesh)
+    torch.cuda.empty_cache()
+    _log(f"sharded B1 launches of the sharded runs: {res['ragged']}")
+    return res
+
+
 def _b2_rows(params, signed):
     """``ops._launch`` keywords of the B2 loop's launches, one per row of
     an epoch's parameter table."""
@@ -2828,16 +3114,18 @@ def main() -> int:
         ctrl = _phase(control_phase, dev, sc, res)
         export = _phase(export_phase, sc, res)
         chaos = _phase(chaos_phase, dev, sc, res)
+        sharded = _phase(sharded_phase, dev, sc)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
             ("fleet_ragged", "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
              + um_e["ragged"] + churn["ragged"] + ctrl["ragged"]
-             + export + chaos["ragged"],
+             + export + chaos["ragged"] + sharded["ragged"],
              max(worst["fleet_ragged"], res["max_abs_err"],
                  um_w["max_abs_err"], churn["max_abs_err"],
-                 ctrl["max_abs_err"], chaos["max_abs_err"]), timing),
+                 ctrl["max_abs_err"], chaos["max_abs_err"],
+                 sharded["max_abs_err"]), timing),
             ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),

@@ -18,8 +18,6 @@ re-equalized, and every query takes a ``failures`` policy ("mask",
 disaggregation without subepoching or equalization.
 ``AggregatedSystem`` is the traditional baseline: a full (depth x width)
 sketch on each core switch (``core.sketches``).
-
-Not ported yet: device meshes.
 """
 from __future__ import annotations
 
@@ -63,6 +61,13 @@ class DiSketchSystem:
       * ``"loop"`` — the host numpy per-switch simulator, one
         ``process_epoch`` per switch; it refuses ``device`` and
         ``fleet_kwargs`` rather than ignore them.
+
+    ``mesh`` (fleet backend only, in place of ``device``) shards the
+    fragment fleet over the ``"switch"`` axis of a device mesh
+    (``launch.mesh.make_switch_mesh``): updates dispatch shard-locally,
+    each shard's row groups stay on its device, and queries copy only the
+    gathered estimate slices to the merge device — bit-identical to the
+    single-device fleet.
     The reference defaults to ``"loop"``; the port runs on the card unless
     asked otherwise.
     """
@@ -78,8 +83,13 @@ class DiSketchSystem:
                  mesh=None, device=None):
         if backend not in ("loop", "fleet"):
             raise ValueError(f"unknown backend {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet")
+        if mesh is not None and backend != "fleet":
+            raise ValueError(
+                "mesh sharding requires backend='fleet' (the loop "
+                "backend is per-switch host numpy)")
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both: the mesh "
+                             "names the devices")
         if backend == "loop" and (device is not None or fleet_kwargs):
             raise ValueError("backend='loop' is the host numpy simulator: "
                              "it takes no device or fleet_kwargs")
@@ -127,9 +137,11 @@ class DiSketchSystem:
         if backend == "fleet":
             from .fleet import FleetEpochRunner
 
+            kw = dict(fleet_kwargs or {})
+            if mesh is not None:
+                kw.setdefault("mesh", mesh)
             self.fleet = FleetEpochRunner(self.fragments, log2_te,
-                                          device=device,
-                                          **dict(fleet_kwargs or {}))
+                                          device=device, **kw)
 
     def _control_ns(self) -> Dict[int, int]:
         """The subepoch counts the next dispatch runs at."""

@@ -40,7 +40,16 @@ messages arrive (``mark_unexported``, a liveness domain of its own) and
 patches them back in place (``deliver_cell``), on the resident groups or
 the host copy alike.
 
-Not ported yet: device meshes.
+A device mesh (``mesh=``, ``launch.mesh.make_switch_mesh``) shards the
+fleet over contiguous fragment blocks: each shard packs its own
+fragments' packets, dispatches them on its own device, and keeps its row
+groups there; the peak, the PEBs, XOR parity (groups must be shard-local)
+and lost-cell zeros stay on the rows' device, and a query copies only the
+gathered ``(E, R_g, K)`` estimate slices to the merge device
+(``self.device``, the mesh's first).  Rows keep their global indices, so
+everything downstream reads a sharded window as an unsharded one, and
+the counters and estimates are bit-identical to the single-device
+fleet's.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ from ..device import resolve_device
 from ..kernels.sketch_update import fleet as FK
 from ..kernels.sketch_update.kernel import (LVL_FIELD_MASK, LVL_SHIFT,
                                             SH_SHIFT, check_output_peak)
+from ..launch.mesh import shard_frag_bounds
 from . import equalize
 from . import hashing as H
 from .fragment import (EpochRecords, FragmentConfig, _ROLE_COL, _ROLE_SIGN,
@@ -290,7 +300,10 @@ def dispatch_ragged_grouped(params: np.ndarray,
                             packets: Sequence[FleetPacket], *, log2_te: int,
                             signed: bool, blk: int = 256, n_levels: int = 1,
                             with_mitigation: bool = False,
-                            device=None) -> StackGroups:
+                            device=None,
+                            shards: Optional[Sequence[Tuple[Tuple[int, int],
+                                                            object]]] = None,
+                            ) -> StackGroups:
     """Ragged CSR dispatch with fragments grouped by subepoch count: one
     ``fleet_update_ragged`` launch per distinct ``n_sub``, each sized to
     its group's ``(n_sub, width)`` ceiling, so no row pays another row's
@@ -298,13 +311,16 @@ def dispatch_ragged_grouped(params: np.ndarray,
     ungrouped launch.
 
     ``params`` rows are (epoch, fragment[, level]), epoch-major, with
-    ``n_sub``/``width`` frozen across the window.  Returns the window's
-    row groups on ``device`` (default ``cuda``): ``(rows, counters)`` per
-    group, in ascending ``n_sub``, with ``rows`` the group's row indices
-    within an epoch and ``counters`` its ``(E, R_g, n_sub_g, width_g)``
-    f32 output.  Nothing is padded to the fleet-wide ceiling.
+    ``n_sub``/``width`` frozen across the window.  ``shards`` lists
+    ``((lo, hi), device)`` blocks of fragment positions (a device mesh's;
+    default one block of every fragment on ``device``, itself ``cuda`` by
+    default): a group never spans two blocks, and each block packs and
+    launches its own groups on its own device.  Returns the window's row
+    groups: ``(rows, counters)`` per group, block by block in ascending
+    ``n_sub``, with ``rows`` the group's row indices within an epoch and
+    ``counters`` its ``(E, R_g, n_sub_g, width_g)`` f32 output on its
+    block's device.  Nothing is padded to the fleet-wide ceiling.
     """
-    dev = resolve_device(device)
     e_count = len(packets)
     n_frags = packets[0].n_frags
     L = n_levels
@@ -320,23 +336,26 @@ def dispatch_ragged_grouped(params: np.ndarray,
             raise ValueError("grouped dispatch requires ns and widths "
                              "frozen across the window")
     groups: StackGroups = []
-    for n_g in np.unique(nsub_f):
-        frag_idx = np.flatnonzero(nsub_f == n_g)
-        w_g = int(width_f[frag_idx].max())
-        # all L level rows of each group fragment — within an epoch, and
-        # epoch-major across the window, aligned with the packet rows
-        # pack_csr emits for the selected segments
-        rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
-        all_rows = (np.arange(e_count)[:, None] * n_frags * L
-                    + rows[None, :]).ravel()
-        keys, vals, ts, block_frag = pack_csr(
-            [p.select(frag_idx) for p in packets], blk)
-        out_g = FK.fleet_update_ragged(
-            keys, vals, ts, params[all_rows], block_frag, n_sub_max=int(n_g),
-            width_max=w_g, log2_te=log2_te, signed=signed, blk=blk,
-            n_levels=L, with_mitigation=with_mitigation, device=dev)
-        groups.append((rows, out_g.reshape(e_count, len(rows), int(n_g),
-                                           w_g)))
+    for (lo, hi), dev in shards or [((0, n_frags), device)]:
+        dev = resolve_device(dev)
+        for n_g in np.unique(nsub_f[lo:hi]):
+            frag_idx = lo + np.flatnonzero(nsub_f[lo:hi] == n_g)
+            w_g = int(width_f[frag_idx].max())
+            # all L level rows of each group fragment — within an epoch,
+            # and epoch-major across the window, aligned with the packet
+            # rows pack_csr emits for the selected segments
+            rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
+            all_rows = (np.arange(e_count)[:, None] * n_frags * L
+                        + rows[None, :]).ravel()
+            keys, vals, ts, block_frag = pack_csr(
+                [p.select(frag_idx) for p in packets], blk)
+            out_g = FK.fleet_update_ragged(
+                keys, vals, ts, params[all_rows], block_frag,
+                n_sub_max=int(n_g), width_max=w_g, log2_te=log2_te,
+                signed=signed, blk=blk, n_levels=L,
+                with_mitigation=with_mitigation, device=dev)
+            groups.append((rows, out_g.reshape(e_count, len(rows),
+                                               int(n_g), w_g)))
     return groups
 
 
@@ -399,6 +418,16 @@ class _WindowBuffer:
         else:
             self._host[g][1][e_idx, j:j + l, :n, :w] = \
                 counters.to(torch.int64).cpu().numpy()
+
+    def zero(self, e_idx: int, row: int, n_rows: int, n: int, w: int) -> None:
+        """Zero the ``[:n, :w]`` block of rows ``[row, row + n_rows)`` of
+        one epoch in place, in whichever copy holds them: nothing crosses
+        between devices."""
+        g, j = self._locate(row, n_rows)
+        if self.resident:
+            self._groups[g][1][e_idx, j:j + n_rows, :n, :w] = 0
+        else:
+            self._host[g][1][e_idx, j:j + n_rows, :n, :w] = 0
 
     @property
     def resident(self) -> bool:
@@ -505,11 +534,13 @@ class FleetEpochRunner:
     Holds the fleet's static configuration, packs each epoch's or
     window's streams into the ragged CSR layout (``layout="dense"`` keeps
     the reference's rectangle, cs/cms per-epoch only), dispatches the
-    update kernels on ``device`` (default ``cuda``), and returns records
-    and PEBs.  Window stacks stay on the device for the device query
-    plane; ``keep_stacked=True`` also keeps each ``run_epoch``'s counters
-    there (as a one-epoch window), so ``point_query``/``window_query``
-    cover per-epoch runs too.  UnivMon fleets run every level as a
+    update kernels on ``device`` (default ``cuda``), or shard by shard on
+    the devices of a ``mesh`` (``launch.mesh.SwitchMesh``; ragged only,
+    parity groups shard-local), and returns records and PEBs.  Window
+    stacks stay on the device for the device query plane;
+    ``keep_stacked=True`` also keeps each ``run_epoch``'s counters there
+    (as a one-epoch window), so ``point_query``/``window_query`` cover
+    per-epoch runs too.  UnivMon fleets run every level as a
     virtual fragment row (homogeneous ``n_levels``/``level_seed``); §4.4
     mitigation rides a per-row param flag and the folded single-hop ts
     bit.
@@ -522,8 +553,6 @@ class FleetEpochRunner:
                  mesh=None):
         if layout not in ("ragged", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet")
         kinds = {cfg.kind for cfg in fragments.values()}
         if kinds - {"cs", "cms", "um"} or len(kinds) > 1:
             raise ValueError(
@@ -566,7 +595,12 @@ class FleetEpochRunner:
         self.blk = blk
         self.layout = layout
         self.keep_stacked = keep_stacked
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both: the mesh "
+                             "names the devices")
+        # merges, the G-sum and the query's estimates run here
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
         self.frag_order: Tuple[int, ...] = tuple(sorted(fragments))
         self.widths = np.array([fragments[sw].width
                                 for sw in self.frag_order], np.int64)
@@ -615,6 +649,34 @@ class FleetEpochRunner:
                     self._group_of[i] = gi
                     idx.append(i)
                 self.parity_groups.append(np.asarray(idx, np.int64))
+        # --- device-mesh sharding ---------------------------------------
+        # Contiguous fragment blocks over the mesh's "switch" axis: shard s
+        # packs, dispatches and keeps the rows of fragments
+        # _shard_frag_bounds[s] on mesh.devices[s].
+        self.mesh = mesh
+        self.n_shards = 1
+        self._frags_per_shard: Optional[int] = None
+        self._shard_frag_bounds: Optional[List[Tuple[int, int]]] = None
+        self._shards = None     # dispatch_ragged_grouped's shard blocks
+        if mesh is not None:
+            if layout == "dense":
+                raise ValueError(
+                    "mesh sharding requires layout='ragged' (the dense "
+                    "rectangle is a single-device oracle)")
+            self.n_shards = len(mesh.devices)
+            self._shard_frag_bounds = shard_frag_bounds(
+                len(self.frag_order), self.n_shards)
+            self._shards = list(zip(self._shard_frag_bounds, mesh.devices))
+            self._frags_per_shard = (self._shard_frag_bounds[0][1]
+                                     - self._shard_frag_bounds[0][0])
+            for gi, g in enumerate(self.parity_groups or ()):
+                shards = {int(i) // self._frags_per_shard for i in g}
+                if len(shards) > 1:
+                    raise ValueError(
+                        f"parity group {gi} spans mesh shards "
+                        f"{sorted(shards)}: XOR recovery reads whole "
+                        "group rows, so groups must be shard-local "
+                        "under a device mesh")
         # What the last window query could observe (``_liveness_sels``):
         # queried epochs, those with a live on-path row, and the scale.
         self.last_observability: Optional[Dict] = None
@@ -693,7 +755,7 @@ class FleetEpochRunner:
             params, packets, log2_te=self.log2_te,
             signed=self.kind in ("cs", "um"), blk=self.blk,
             n_levels=self.n_levels, with_mitigation=self.mitigation,
-            device=self.device)
+            device=self.device, shards=self._shards)
 
     def _dispatch_dense(self, params: np.ndarray,
                         packet: FleetPacket) -> StackGroups:
@@ -717,11 +779,15 @@ class FleetEpochRunner:
 
     def _check_peak(self, groups: StackGroups) -> None:
         """The f32 exact-integer contract on every counter, one pass per
-        group on the device and one scalar to the host."""
-        peaks = [torch.maximum(hi, -lo) for lo, hi in
-                 (torch.aminmax(c) for _, c in groups if c.numel())]
-        if peaks:
-            check_output_peak(float(torch.stack(peaks).max()))
+        group on its device and one scalar per device to the host."""
+        by_dev: Dict[torch.device, List[torch.Tensor]] = {}
+        for _, c in groups:
+            if c.numel():
+                lo, hi = torch.aminmax(c)
+                by_dev.setdefault(c.device, []).append(torch.maximum(hi, -lo))
+        if by_dev:
+            check_output_peak(max(float(torch.stack(p).max())
+                                  for p in by_dev.values()))
 
     def _register_window(self, epoch0: int, params_by_epoch: List[np.ndarray],
                          groups: StackGroups, shape: Tuple[int, ...]
@@ -889,9 +955,8 @@ class FleetEpochRunner:
         for e, lost in enumerate(lost_sets):
             for sw in lost:
                 i = self._frag_pos[sw]
-                buf.patch(e, i * L, torch.zeros(
-                    (L,) + self._block_shape(params_by_epoch[0], i),
-                    device=self.device))
+                buf.zero(e, i * L, L,
+                         *self._block_shape(params_by_epoch[0], i))
         # snapshot the config dict: records keep this window's widths
         frags_now = dict(self.fragments)
         recs_list = [WindowRecords(buf, e, epoch0 + e, frags_now,
@@ -920,7 +985,9 @@ class FleetEpochRunner:
         each member's ``(L, n_i, w_i)`` block flattened and zero-padded to
         the group's longest.  Counters are exact integers below 2^24, so
         the f32 -> int32 cast is exact, and XOR neither rounds nor
-        overflows; dead members' rows are zeros and XOR away."""
+        overflows; dead members' rows are zeros and XOR away.  A group's
+        members live on one device (shard-local under a mesh), and so does
+        its parity."""
         L = self.n_levels
         per_group = []
         for members in self.parity_groups:
@@ -929,7 +996,7 @@ class FleetEpochRunner:
                       .to(torch.int32).reshape(e_count, -1)
                       for i in members]
             acc = torch.zeros((e_count, max(b.shape[1] for b in blocks)),
-                              dtype=torch.int32, device=self.device)
+                              dtype=torch.int32, device=blocks[0].device)
             for b in blocks:
                 acc[:, :b.shape[1]] ^= b
             per_group.append(acc)
@@ -1055,8 +1122,8 @@ class FleetEpochRunner:
             groups = buf.device()
             idx = [self._window_bufs[e][1] for e in es]
             if groups and idx != list(range(groups[0][1].shape[0])):
-                sel = torch.as_tensor(idx, device=groups[0][1].device)
-                groups = [(rows, c[sel]) for rows, c in groups]
+                groups = [(rows, c[torch.as_tensor(idx, device=c.device)])
+                          for rows, c in groups]
             device_groups.append((groups, es))
         return device_groups, host_epochs
 
@@ -1299,19 +1366,17 @@ class FleetEpochRunner:
         switch's live block in the window and mask its rows.  Deliberately
         not the ``_lost`` domain, which is parity's: a held cell is in
         flight, not reclaimed.  The zeros are made where the window lives,
-        so no cell crosses between host and device."""
+        so no cell crosses between devices."""
         if epoch not in self._window_bufs:
             raise KeyError(f"epoch {epoch} has no retained window")
         buf, e_idx = self._window_bufs[epoch]
         params = self._params_log[epoch]
-        dev = self.device if buf.resident else "cpu"
         L = self.n_levels
         live = self._own_row_live(epoch)
         pend = self._unexported.setdefault(epoch, set())
         for sw in sws:
             i = self._frag_pos[sw]
-            buf.patch(e_idx, i * L, torch.zeros(
-                (L,) + self._block_shape(params, i), device=dev))
+            buf.zero(e_idx, i * L, L, *self._block_shape(params, i))
             live[i * L:(i + 1) * L] = False
             pend.add(i)
 

@@ -1,8 +1,7 @@
 """Device-resident batched query plane (paper §4.3): gather + merge over a
-window's stacked counters (port of ``repro/kernels/sketch_query/engine.py``
-without the device mesh).
+window's stacked counters (port of ``repro/kernels/sketch_query/engine.py``).
 
-One pass, in PyTorch ops on the device that holds the stack:
+One pass, in PyTorch ops:
 
   1. recompute every row's column/sign/subepoch hashes for the key batch
      (``core.hashing``'s int64 torch twins of the uint32 arithmetic);
@@ -10,10 +9,20 @@ One pass, in PyTorch ops on the device that holds the stack:
      ``stack[e, r, sub(e,r,k), col(e,r,k)]`` for all keys at once, for
      the rows some epoch selects, from the row group that holds the row
      (a window buffer keeps one ``(E, R_g, n_g, w_g)`` tensor per
-     subepoch count, not one stack padded to the fleet-wide ceiling);
-  3. merge across rows per epoch — min for Count-Min, a +inf-masked median
+     subepoch count, not one stack padded to the fleet-wide ceiling), on
+     the group's own device;
+  3. copy each group's ``(E, R_g, K)`` slice to the merge device in row
+     order (``_all_gather_rows``, the reference's tiled ``all_gather``
+     over the ``switch`` mesh axis; a no-op off a mesh), then merge
+     across rows per epoch — min for Count-Min, a +inf-masked median
      for Count Sketch (``frag_sel`` keeps the on-path rows, §4.3 Step 1);
   4. sum over the window's epochs (O_Q = Sum(O)).
+
+Under a device mesh (``launch.mesh``) each shard's groups stay on its
+device: only the gathered estimate slices cross to the merge device, and
+the merge sees them in single-device row order, so the estimates are
+bit-identical to the unsharded fleet's.  The port's windows are row
+groups over the unpadded row space, so it needs no pad rows.
 
 UnivMon (§6.2): ``um_window_query_device`` runs the same gather over
 every (epoch, fragment, level) row and the median over the fragments of
@@ -131,10 +140,11 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
     """Batched window point query on a resident window.
 
     Args:
-      stack: the window's counters on one device — a dense
-        ``(E, R, n_sub_max, width_max)`` f32 tensor, or the row groups a
-        window buffer holds: ``(rows, counters)`` pairs with ``counters``
-        ``(E, R_g, n_g, w_g)`` for the rows ``rows`` of every epoch.
+      stack: the window's counters — a dense ``(E, R, n_sub_max,
+        width_max)`` f32 tensor, or the row groups a window buffer holds:
+        ``(rows, counters)`` pairs with ``counters`` ``(E, R_g, n_g,
+        w_g)`` for the rows ``rows`` of every epoch, each group on its
+        own device (a mesh shard's).
       params_by_epoch: E host ``(R, N_PARAMS)`` int32 tables (per-epoch
         seeds; ``n_sub``/``width`` frozen across the window).
       keys: (K,) uint32 key batch.
@@ -177,8 +187,10 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
         need = sel2.any(axis=0)
     if len(keys) == 0:
         return np.zeros(0)
+    # the merge runs on the first group's device: under a mesh, shard 0's
+    # groups come first, on the mesh's first device
     dev = groups[0][1].device
-    raw = _gather_groups(groups, params, ns, widths, keys, need,
+    raw = _gather_groups(groups, params, ns, widths, keys, need, dev,
                          signed=kind in ("cs", "um"),
                          mitigate=bool(single_hop))
     sel = _put(frag_sel, dev, torch.bool)
@@ -193,18 +205,28 @@ def _put(a, dev, dtype=torch.int64) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
 
+def _all_gather_rows(part: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """One row group's ``(E, R_g, K)`` f32 estimate slice on the merge
+    device: the only counter-derived tensor that crosses devices under a
+    mesh (peer to peer between cards), the reference's
+    ``all_gather(..., tiled=True)``.  A no-op on the merge device."""
+    return part.to(dev)
+
+
 def _gather_groups(groups, params: np.ndarray, ns: np.ndarray,
-                   widths: np.ndarray, keys: np.ndarray, need: np.ndarray, *,
-                   signed: bool, mitigate: bool) -> torch.Tensor:
-    """``_gather_raw`` over a window's row groups: the ``(E, R, K)`` f32
-    raw estimates of the rows ``need`` (R,) selects, on the groups'
-    device.  The other rows are left unwritten; the merge masks them.
-    ``mitigate`` asks for the §4.4 average on the rows that mitigate."""
+                   widths: np.ndarray, keys: np.ndarray, need: np.ndarray,
+                   dev: torch.device, *, signed: bool,
+                   mitigate: bool) -> torch.Tensor:
+    """``_gather_raw`` over a window's row groups, each on its own device:
+    the ``(E, R, K)`` f32 raw estimates of the rows ``need`` (R,) selects,
+    gathered into one tensor on ``dev`` in row order.  The other rows are
+    left unwritten; the merge masks them.  ``mitigate`` asks for the §4.4
+    average on the rows that mitigate."""
     e_count, n_rows = params.shape[:2]
-    dev = groups[0][1].device
     mit_rows = params[0, :, PARAM_MIT] != 0
     mitigate = mitigate and bool(mit_rows.any())
-    k = _put(keys.astype(np.int64), dev)
+    keys64 = keys.astype(np.int64)
+    k_on = {}
     raw = torch.empty((e_count, n_rows, len(keys)), dtype=torch.float32,
                       device=dev)
     for rows, counters in groups:
@@ -212,12 +234,17 @@ def _gather_groups(groups, params: np.ndarray, ns: np.ndarray,
         if not len(pos):
             continue
         r = np.asarray(rows)[pos]
-        raw[:, _put(r, dev)] = _gather_raw(
-            counters, _put(pos, dev), _put(params[:, r, PARAM_COL_SEED], dev),
-            _put(params[:, r, PARAM_SIGN_SEED], dev),
-            _put(params[:, r, PARAM_SUB_SEED], dev), _put(ns[r], dev),
-            _put(widths[r], dev), _put(mit_rows[r], dev, torch.bool),
-            k, signed=signed, mitigate=mitigate)
+        gdev = counters.device
+        if gdev not in k_on:
+            k_on[gdev] = _put(keys64, gdev)
+        part = _gather_raw(
+            counters, _put(pos, gdev),
+            _put(params[:, r, PARAM_COL_SEED], gdev),
+            _put(params[:, r, PARAM_SIGN_SEED], gdev),
+            _put(params[:, r, PARAM_SUB_SEED], gdev), _put(ns[r], gdev),
+            _put(widths[r], gdev), _put(mit_rows[r], gdev, torch.bool),
+            k_on[gdev], signed=signed, mitigate=mitigate)
+        raw[:, _put(r, dev)] = _all_gather_rows(part, dev)
     return raw
 
 
@@ -270,12 +297,12 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
             "has no survivor")
     if len(keys) == 0:
         return np.zeros((n_levels, 0))
+    dev = groups[0][1].device   # shard 0's, as above
     raw = _gather_groups(groups, params, ns, widths, keys,
-                         np.repeat(sel2.any(axis=0), n_levels), signed=True,
-                         mitigate=False)
+                         np.repeat(sel2.any(axis=0), n_levels), dev,
+                         signed=True, mitigate=False)
     raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
            .reshape(e_count * n_levels, n_frags, -1))
-    dev = raw.device
     sel = _put(frag_sel, dev, torch.bool)
     if sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout above
         sel = sel.repeat_interleave(n_levels, dim=0)

@@ -568,3 +568,64 @@ def test_chaos_harness_on_card(cuda_device):
     for sw, e in applied:
         np.testing.assert_array_equal(card.fleet.cell_counters(e, sw),
                                       cpu.fleet.cell_counters(e, sw))
+
+
+@pytest.mark.parametrize("spread", ["one card", "across cards"])
+def test_sharded_window_on_card(cuda_device, spread):
+    """Four shards (``make_switch_mesh(4, devices=[cuda] * 4)`` on one
+    card, or one shard a card on up to four cards) equal the
+    single-device window run cell by cell and query by query, with parity
+    and a death inside a window; every group stays on its shard's card
+    and B1 launches once per distinct n_sub of each shard."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.core.fleet import parity_groups_chunked
+    from repro_torch.launch import make_switch_mesh
+
+    mems = {sw: 256 << (sw % 4) for sw in range(6)}
+    if spread == "one card":
+        mesh = make_switch_mesh(4, devices=[cuda_device] * 4)
+    elif torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more GPUs: one shard a card")
+    else:
+        mesh = make_switch_mesh(min(torch.cuda.device_count(), 4))
+    # parity groups of one shard's size: shard-local for 2, 3 or 4 shards
+    groups = parity_groups_chunked(range(6), -(-6 // len(mesh.devices)))
+    systems, launches = [], []
+    for where in (dict(device=cuda_device), dict(mesh=mesh)):
+        s = DiSketchSystem(mems, "cs", rho_target=0.5, log2_te=10,
+                           fleet_kwargs={"parity_groups": groups}, **where)
+        before = FK.fleet_update_ragged.launches
+        for e0 in range(0, 8, 4):
+            ev = [[], [SimpleNamespace(kind="fail", switch=2, factor=1.0)],
+                  [], []] if e0 == 0 else None
+            s.run_window(e0, [_churn_streams(e) for e in range(e0, e0 + 4)],
+                         events_by_epoch=ev)
+        launches.append(FK.fleet_update_ragged.launches - before)
+        systems.append(s)
+    one, four = systems
+    fleet = four.fleet
+    expected = sum(len(np.unique(fleet._params_log[e0][lo:hi,
+                                                       FK.PARAM_N_SUB]))
+                   for e0 in (0, 4) for lo, hi in fleet._shard_frag_bounds
+                   if lo < hi)
+    assert launches[1] == expected >= launches[0] > 0
+    for buf, _ in fleet._window_bufs.values():
+        for rows, c in buf.device():
+            shard = [s for s, (lo, hi) in enumerate(fleet._shard_frag_bounds)
+                     if lo <= rows[0] < hi][0]
+            assert c.device == mesh.devices[shard] and c.is_cuda
+    assert one.fleet.recoverable() == fleet.recoverable() == {0: [2]}
+    keys = np.arange(0, 4000, 13, dtype=np.uint32)
+    paths = [(0, 2, 4)] * len(keys)
+    for failures in ("oblivious", "mask", "recover"):
+        assert np.array_equal(
+            one.query_flows(keys, paths, range(8), merge="fragment",
+                            failures=failures),
+            four.query_flows(keys, paths, range(8), merge="fragment",
+                             failures=failures))
+    for e in range(8):
+        for sw in mems:
+            assert np.array_equal(one.fleet.cell_counters(e, sw),
+                                  fleet.cell_counters(e, sw))

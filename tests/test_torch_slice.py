@@ -37,6 +37,7 @@ from repro_torch.core.disketch import DiSketchSystem
 from repro_torch.core.fleet import FleetEpochRunner
 from repro_torch.core.fragment import FragmentConfig as TCfg
 from repro_torch.kernels.sketch_query import engine as TE
+from repro_torch.launch.mesh import make_switch_mesh
 from repro_torch.net.simulator import Replayer
 from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import gen_workload, gini_memories
@@ -271,15 +272,20 @@ def test_fleet_window_path_matches_reference(scenario, reference_engine,
 
 
 def test_unported_options_raise():
-    """What the port does not have yet raises instead of running another
-    path: device meshes.  (Churn events and XOR parity groups are ported
-    and held by ``tests/test_torch_churn.py``; a malformed event still
-    raises before anything is dispatched.)"""
+    """Options the port refuses raise instead of running another path: a
+    device mesh with the loop backend, and ``device=`` beside ``mesh=``
+    (the mesh names the devices).  The
+    sharded fleet itself is held by ``tests/test_torch_sharded.py``;
+    churn events and XOR parity groups by ``tests/test_torch_churn.py``.
+    A malformed event still raises before anything is dispatched."""
     mems = {0: 4096, 1: 8192}
-    for backend in ("fleet", "loop"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
-                           backend=backend, mesh=object(), device="cpu")
+    mesh = make_switch_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="backend='fleet'"):
+        DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
+                       backend="loop", mesh=mesh)
+    with pytest.raises(ValueError, match="not both"):
+        DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
+                       mesh=mesh, device="cpu")
     system = DiSketchSystem(mems, "cs", rho_target=1.0, log2_te=LOG2_TE,
                             device="cpu")
     empty = {}
@@ -289,7 +295,7 @@ def test_unported_options_raise():
         system.run_window(0, [empty, empty],
                           events_by_epoch=[[object()], []])
     frags = {0: TCfg(0, "cs", 4096)}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FleetEpochRunner(frags, LOG2_TE, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        FleetEpochRunner(frags, LOG2_TE, device="cpu", mesh=mesh)
     # nothing was dispatched by the refused calls
     assert system.records == {} and system.n_log == []
