@@ -60,7 +60,15 @@ full-scale setting:
   beside its single-device twin, every cell and every query bit for bit
   equal to the twin's, one window's per-shard B1 groups held to the
   plain version, and the bytes of the estimate slices the query gather
-  hands to the merge device.
+  hands to the merge device;
+* the model serving path (``repro_torch.launch.serve``; torch ops, no
+  kernel of its own): every model family at its ``reduced`` size on the
+  card held to the port on the CPU with the same weights; gemma2-2b at
+  full width and depth (3.2 G f32 parameters drawn on the card) served by
+  the continuous-batching server at the reference server's defaults, then
+  teacher forcing with an 8192-token prompt past the local window (prefill
+  and 32 decode steps == forward); and a 2-layer full-width gemma2-2b held
+  to the reference's logits (``SERVE_PIN``).
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
@@ -68,8 +76,8 @@ kernels, that the dense, ragged and loop counters are bit-identical, and
 that the answers are right: the RMSEs and entropies are pinned to the JAX
 reference's values at this setting, and so are the control plane's
 applied configs, stale epochs and protocol counters, the export
-plane's protocol counters and crash report, and the chaos harness's
-report, crash log and n trajectory.
+plane's protocol counters and crash report, the chaos harness's
+report, crash log and n trajectory, and the serving path's logits.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -323,6 +331,30 @@ CHAOS_PIN = {
         crash_log="4cc4ac0a3908e1ec", n_log="a0d93445e27d0ab8",
         rmse=14.368594442549064),
 }
+# The serve phase: the model serving path (repro_torch.launch.serve) at
+# the full width of gemma2-2b (26 layers, d_model 2304, vocab 256 000,
+# ~3.2 G f32 parameters, 12.8 GB), at the reference server's defaults
+# (launch/serve.py: 16 requests, a batch of 4, prompts of 32, 32 new
+# tokens, caches of 128); then teacher forcing with a prompt longer than
+# the local window (4096), so the band mask cuts: prefill of SERVE_TF
+# tokens == forward, SERVE_TF_STEPS decode steps == forward at their
+# positions, within tests/test_models.py's 2e-4 and 3e-4.
+SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "gemma2-2b", 16, 4
+SERVE_PROMPT_LEN, SERVE_MAX_NEW, SERVE_MAX_LEN = 32, 32, 128
+SERVE_TF, SERVE_TF_STEPS = 8192, 32
+# SERVE_PIN (scripts/reference_pins.py serve): the reference's prefill of a
+# SERVE_PROMPT-token prompt (numpy default_rng(SERVE_SEED + 1)) through
+# gemma2-2b at full width cut to SERVE_LAYERS layers, f32 weights drawn by
+# init_params from numpy default_rng(SERVE_SEED); the last position's top-8
+# ids, and their logits to SERVE_PIN_RTOL.
+SERVE_LAYERS, SERVE_SEED, SERVE_PROMPT = 2, 11, 16
+SERVE_PIN = {"ids": [120291, 195470, 74226, 183713, 68896, 99161, 243920,
+                     1679],
+             "logits": [4.926590919494629, 4.651458263397217,
+                        4.583889484405518, 4.520737648010254,
+                        4.445533752441406, 4.242554187774658,
+                        4.128481864929199, 4.020838737487793]}
+SERVE_PIN_RTOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -2838,6 +2870,270 @@ def sharded_phase(dev, sc):
     return res
 
 
+# -- the model serving path --------------------------------------------------
+
+def _close(what, got, want, rtol, atol, chunk=512):
+    """Fail unless ``got`` is within ``atol + rtol * |want|`` of ``want``
+    everywhere (compared in position chunks along dim 1, to bound the
+    temporaries at full width); returns the largest absolute error."""
+    worst, ratio = 0.0, 0.0
+    for lo in range(0, want.shape[1], chunk):
+        g, w = got[:, lo:lo + chunk], want[:, lo:lo + chunk]
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{what}: non-finite values")
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / (atol + rtol * w.abs())).max()))
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: off by {worst:.3g} (> {atol} + "
+                             f"{rtol} x |want|, ratio {ratio:.3g})")
+    return worst
+
+
+def _serve_reduced(dev):
+    """(a) Every family at ``reduced`` on the card against the port on the
+    CPU with the same (numpy-seeded) weights: forward, prefill, and a
+    decode step after a prefill of S - 1 tokens (MoE capacity E/K)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, list_configs, reduced
+    from repro_torch.models import convert
+    from repro_torch.models import model as PM
+
+    b, s, cpu, worst = 2, 32, torch.device("cpu"), 0.0
+    for name in list_configs():
+        cfg = reduced(get_config(name))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, moe_capacity_factor=float(cfg.n_experts / cfg.top_k))
+        host = PM.init_params(np.random.default_rng(0), cfg,
+                              dtype=torch.float32, device=cpu)
+        card = convert.from_numpy(convert.to_numpy(host), dev)
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(
+            rng.standard_normal((b, s, cfg.d_model), dtype=np.float32)
+            if cfg.embed_inputs else rng.integers(0, cfg.vocab, (b, s)))
+
+        def run(params, x):
+            out = [PM.forward(params, x, cfg)[0]]
+            st = PM.init_decode_state(params, cfg, b, s, dtype=torch.float32)
+            out.append(PM.prefill(params, x, cfg, st)[0])
+            st = PM.init_decode_state(params, cfg, b, s, dtype=torch.float32)
+            _, st = PM.prefill(params, x[:, :s - 1], cfg, st)
+            tok = x[:, s - 1:s] if cfg.embed_inputs else x[:, s - 1]
+            out.append(PM.decode_step(params, tok, cfg, st)[0][:, None])
+            return out
+
+        errs = [_close(f"serve {name} {what}", g.cpu(), w, tol, tol)
+                for what, g, w, tol in zip(
+                    ("forward", "prefill", "decode"), run(card, x.to(dev)),
+                    run(host, x), (2e-4, 2e-4, 3e-4))]
+        worst = max(worst, *errs)
+        _log(f"serve   {name} (reduced): card == CPU, max |err| forward "
+             f"{errs[0]:.3g}, prefill {errs[1]:.3g}, decode {errs[2]:.3g}")
+    return worst
+
+
+def _serve_full(dev):
+    """(b) gemma2-2b at full width and depth, weights from a
+    ``torch.Generator`` on the card: the server at the reference server's
+    defaults (a cold run, then the measured one), then teacher forcing."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import convert
+    from repro_torch.models import model as PM
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h0 = time.perf_counter()
+    params = PM.init_params(gen, cfg, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in convert.flatten(params).values())
+    _log(f"serve   {SERVE_ARCH} full width: {cfg.n_layers} layers, d_model "
+         f"{cfg.d_model}, vocab {cfg.vocab}; {n} f32 parameters ({4 * n} B; "
+         f"cfg.n_params() {cfg.n_params()}), drawn on the card in "
+         f"{time.perf_counter() - h0:.1f} s")
+    out = {"params": n, "weight_bytes": 4 * n}
+    for run in ("cold", "measured"):
+        rng = np.random.RandomState(0)
+        reqs = [SV.Request(i, rng.randint(0, cfg.vocab, size=SERVE_PROMPT_LEN
+                                          ).astype(np.int32), SERVE_MAX_NEW,
+                           t_enqueue=time.perf_counter())
+                for i in range(SERVE_REQUESTS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done, stats = SV.serve(cfg, params, reqs, SERVE_BATCH, SERVE_MAX_LEN,
+                               dev)
+        m = SV.summary(done, stats, time.perf_counter() - t0)
+        m["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if m["requests"] != SERVE_REQUESTS or m["tokens"] != \
+                SERVE_REQUESTS * SERVE_MAX_NEW or not all(
+                    0 <= t < cfg.vocab for r in done for t in r.out):
+            raise AssertionError(f"serve: {m['requests']} requests, "
+                                 f"{m['tokens']} tokens")
+        _log(f"serve   {run}: {m['requests']} requests, {m['tokens']} tokens "
+             f"in {m['seconds']:.3f} s, {m['tok_per_s']:.1f} tok/s, "
+             f"{m['steps']} decode steps; TTFT p50 {m['ttft_p50_s']:.4f} s, "
+             f"latency p50 {m['latency_p50_s']:.4f} s p99 "
+             f"{m['latency_p99_s']:.4f} s; {m['step_ms']:.3f} ms a decode "
+             f"step (batch {SERVE_BATCH}), {m['prefill_ms']:.3f} ms a "
+             f"prefill ({SERVE_BATCH} x {SERVE_PROMPT_LEN}); peak "
+             f"{m['peak_bytes']} B")
+    out["server"] = m
+    out["profile"] = _decode_profile(cfg, params)
+    out["teacher"] = _teacher_forcing(dev, cfg, params)
+    return out
+
+
+def _decode_profile(cfg, params, steps=8):
+    """``steps`` decode steps of the server's batch under torch.profiler:
+    the device's busy share of the wall time and the heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as PM
+
+    dev = params["embed"].device
+    state = PM.init_decode_state(params, cfg, SERVE_BATCH, SERVE_MAX_LEN,
+                                 dtype=torch.float32)
+    _, state = PM.prefill(params, torch.zeros(
+        (SERVE_BATCH, SERVE_PROMPT_LEN), dtype=torch.long, device=dev), cfg,
+        state)
+    tok = torch.zeros(SERVE_BATCH, dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        for _ in range(steps):
+            _, state = PM.decode_step(params, tok, cfg, state)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - h0)
+    ev = _device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:4]
+    _log(f"serve   profile of {steps} decode steps (batch {SERVE_BATCH}): "
+         f"device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
+         f"({100 * busy_ms / wall_ms:.1f}%, profiler on), "
+         f"{sum(e.count for e in ev)} device events; heaviest: " + "; ".join(
+             f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x"
+             f"{e.count}" for e in top))
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "steps": steps,
+            "events": sum(e.count for e in ev)}
+
+
+def _teacher_forcing(dev, cfg, params):
+    """Prefill of SERVE_TF tokens == forward, and SERVE_TF_STEPS decode
+    steps == forward at their positions (2e-4 and 3e-4)."""
+    import torch
+
+    from repro_torch.models import model as PM
+
+    t = SERVE_TF + SERVE_TF_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, t))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    h0 = time.perf_counter()
+    want, _ = PM.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - h0)
+    state = PM.init_decode_state(params, cfg, 1, t, dtype=torch.float32)
+    h0 = time.perf_counter()
+    got, state = PM.prefill(params, tokens[:, :SERVE_TF], cfg, state)
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - h0)
+    err_p = _close("serve prefill == forward", got, want[:, :SERVE_TF],
+                   2e-4, 2e-4)
+    del got
+    err_d, step_ms = 0.0, []
+    for i in range(SERVE_TF_STEPS):
+        h0 = time.perf_counter()
+        logits, state = PM.decode_step(params, tokens[:, SERVE_TF + i], cfg,
+                                       state)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - h0))
+        err_d = max(err_d, _close(
+            f"serve decode step {i} == forward", logits[:, None],
+            want[:, SERVE_TF + i:SERVE_TF + i + 1], 3e-4, 3e-4))
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"serve   teacher forcing, {SERVE_TF} + {SERVE_TF_STEPS} tokens "
+         f"(local window {cfg.local_window}): forward {fwd_ms:.1f} ms, "
+         f"prefill {pre_ms:.1f} ms, max |err| {err_p:.3g} (2e-4); "
+         f"{SERVE_TF_STEPS} decode steps at {SERVE_TF}+ context, median "
+         f"{float(np.median(step_ms)):.3f} ms, max |err| {err_d:.3g} "
+         f"(3e-4); peak {peak} B")
+    return {"forward_ms": fwd_ms, "prefill_ms": pre_ms, "prefill_err": err_p,
+            "decode_err": err_d, "decode_ms": float(np.median(step_ms)),
+            "peak_bytes": peak}
+
+
+def _serve_pinned(dev):
+    """(c) gemma2-2b at full width cut to SERVE_LAYERS layers, numpy-seeded
+    weights, held to the reference's SERVE_PIN."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as PM
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    h0 = time.perf_counter()
+    params = PM.init_params(np.random.default_rng(SERVE_SEED), cfg,
+                            dtype=torch.float32, device=dev)
+    init_s = time.perf_counter() - h0
+    prompt = torch.from_numpy(np.random.default_rng(SERVE_SEED + 1).integers(
+        0, cfg.vocab, (1, SERVE_PROMPT))).to(dev)
+    state = PM.init_decode_state(params, cfg, 1, SERVE_PROMPT,
+                                 dtype=torch.float32)
+    logits, _ = PM.prefill(params, prompt, cfg, state)
+    last = logits[0, -1].double().cpu().numpy()
+    top = np.argsort(-last, kind="stable")[:len(SERVE_PIN["ids"])]
+    if top.tolist() != SERVE_PIN["ids"]:
+        raise AssertionError(f"SERVE_PIN: top ids {top.tolist()} against "
+                             f"the reference's {SERVE_PIN['ids']}")
+    rel = 0.0
+    for i, want in zip(top, SERVE_PIN["logits"]):
+        _pinned(f"SERVE_PIN logit {i}", float(last[i]), want, SERVE_PIN_RTOL)
+        rel = max(rel, abs(float(last[i]) - want) / abs(want))
+    _log(f"serve   SERVE_PIN: {SERVE_LAYERS}-layer full-width {SERVE_ARCH}, "
+         f"numpy-seeded weights ({init_s:.1f} s to draw and copy): top-8 ids "
+         f"== the reference's, logits within {rel:.3g} relative "
+         f"({SERVE_PIN_RTOL})")
+    return rel
+
+
+def serve_phase(dev):
+    """The model serving path: (a) every family at ``reduced`` on the card
+    == on the CPU; (b) full-width gemma2-2b: the server and teacher
+    forcing; (c) ``SERVE_PIN``.  The path runs torch ops only: no launch of
+    B1, B2 or B3."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    _log(f"serve   torch.backends.cuda.matmul.allow_tf32 = {tf32}")
+    if tf32:
+        raise AssertionError("TF32 matmuls are on: f32 would not mean f32")
+    reset_counts()
+    res = {"reduced_err": _serve_reduced(dev)}
+    torch.cuda.empty_cache()
+    res.update(_serve_full(dev))
+    torch.cuda.empty_cache()
+    res["pin_rel"] = _serve_pinned(dev)
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"serve launched sketch kernels: {counts}")
+    _log(f"serve   sketch kernel launches on the serving path: {counts}")
+    _log(json.dumps({"serve": res}))
+    return res
+
+
 def _b2_rows(params, signed):
     """``ops._launch`` keywords of the B2 loop's launches, one per row of
     an epoch's parameter table."""
@@ -3115,6 +3411,7 @@ def main() -> int:
         export = _phase(export_phase, sc, res)
         chaos = _phase(chaos_phase, dev, sc, res)
         sharded = _phase(sharded_phase, dev, sc)
+        _phase(serve_phase, dev)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [

@@ -1,7 +1,7 @@
 """The JAX reference's answers at chip_smoke.py's §6.1 setting: the values
 the smoke pins (``RHO["um"]``, ``RMSE_PIN``, ``AGG_RMSE_PIN``,
 ``ENTROPY_PIN``, ``CHURN_PIN``, ``CONTROL_PIN``, ``EXPORT_PIN``,
-``CHAOS_PIN``), computed on the CPU by
+``CHAOS_PIN``; and ``SERVE_PIN``, see below), computed on the CPU by
 the reference's numpy paths (the loop backend, ``process_epoch``,
 ``query_window``) and, for the window-8 entropy at k_heavy 1024, its jnp
 device G-sum.
@@ -9,8 +9,8 @@ device G-sum.
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn, control, export, chaos (default: all).  Prints one ``name value``
-line per result, then one JSON object.  All sections take a few minutes at this
+churn, control, export, chaos, serve (default: all).  Prints one ``name
+value`` line per result, then one JSON object.  All sections take a few minutes at this
 full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
 CPU, ``control`` under 45 s, ``export`` under 30 s, ``chaos`` under 60 s.
 
@@ -55,6 +55,16 @@ configs, and the dead and lost cells stay out of ``records``, so the
 export plane stages the live cells only, as the port's fleet does.
 ``tests/test_torch_chaos.py`` holds the port's harness to the same oracle
 at a small size.
+
+The ``serve`` section is the model serving path's pin (``SERVE_PIN``):
+gemma2-2b at full width cut to ``SERVE_LAYERS`` layers, f32 weights drawn
+from ``numpy.random.default_rng(SERVE_SEED)`` by the port's
+``init_params`` and carried into the reference's pytree, and the
+reference's ``prefill`` of a fixed prompt into an f32 cache; the pin is
+the top-8 token ids and values of the last position's logits.  The port's
+own prefill on this CPU is printed beside it for comparison.  It peaks
+at about 10 GB of host memory (1.34 G parameters, in numpy and in jax),
+takes 30 to 40 s on an 8-core x86 CPU, and needs no workload.
 """
 import hashlib
 import json
@@ -86,7 +96,7 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window", "churn", "control", "export", "chaos")
+            "um_window", "churn", "control", "export", "chaos", "serve")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 # the export phase: protocol rounds after each window dispatch, the
@@ -99,6 +109,9 @@ EXPORT_VICTIM = 16
 CHAOS_RUNS = (("lossless cs", "cs", False, 4, 0),
               ("cs", "cs", True, 6, 2), ("cms", "cms", True, 6, 2))
 CHAOS_MAX_RETRIES = 12
+# the serve phase's pin: layers kept of gemma2-2b, the weights' seed, the
+# prompt's length and seed, and how many of the last logits are pinned
+SERVE_LAYERS, SERVE_SEED, SERVE_PROMPT, SERVE_TOP = 2, 11, 16, 8
 
 out = {}
 
@@ -416,6 +429,11 @@ def path_groups(paths):
 
 
 def main(sections):
+    if "serve" in sections:
+        serve()
+    if set(sections) <= {"serve"}:
+        print(json.dumps(out))
+        return
     topo = FatTree(4)
     wl = gen_workload(topo, n_flows=N_FLOWS, total_packets=N_PACKETS,
                       n_epochs=N_EPOCHS, log2_te=LOG2_TE, burstiness=0.2,
@@ -678,6 +696,45 @@ def chaos(rep, mems, keys, truth, paths, epochs):
         save(f"chaos {name} n_log", n_log_digest(em.n_log))
         save(f"chaos {name} rmse", rmse(h.query_flows(
             keys, paths, epochs, merge="fragment", failures="mask"), truth))
+
+
+def serve():
+    """The serve phase's pin: the reference's prefill of a fixed prompt
+    through full-width gemma2-2b cut to ``SERVE_LAYERS`` layers, from
+    numpy-seeded f32 weights; the top-``SERVE_TOP`` ids and values of the
+    last position's logits."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs import get_config
+    from repro.models import model as RM
+    from repro_torch.models import convert
+    from repro_torch.models import model as PM
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=SERVE_LAYERS)
+    params = PM.init_params(np.random.default_rng(SERVE_SEED), cfg,
+                            dtype=torch.float32, device="cpu")
+    prompt = np.random.default_rng(SERVE_SEED + 1).integers(
+        0, cfg.vocab, (1, SERVE_PROMPT)).astype(np.int32)
+    state = PM.init_decode_state(params, cfg, 1, SERVE_PROMPT,
+                                 dtype=torch.float32)
+    port = PM.prefill(params, torch.from_numpy(prompt).long(), cfg,
+                      state)[0][0, -1].double().numpy()
+    rp = jax.tree.map(jnp.asarray, convert.to_numpy(params))
+    del params
+    state = RM.init_decode_state(rp, cfg, 1, SERVE_PROMPT, dtype=jnp.float32)
+    logits, _ = RM.prefill(rp, jnp.asarray(prompt), cfg, state)
+    last = np.asarray(logits[0, -1], np.float64)
+    top = np.argsort(-last, kind="stable")[:SERVE_TOP]
+    save("serve top ids", [int(i) for i in top])
+    save("serve top logits", [float(last[i]) for i in top])
+    # the port on this CPU, for comparison (the smoke holds the card's)
+    save("serve port top ids equal",
+         np.argsort(-port, kind="stable")[:SERVE_TOP].tolist() == top.tolist())
+    save("serve port top logits, max relative error",
+         float(np.max(np.abs(port[top] - last[top]) / np.abs(last[top]))))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """PyTorch / CUDA port of the DiSketch system for NVIDIA Hopper (H100).
 
 The package mirrors ``src/repro/`` (``core/``, ``kernels/``, ``net/``,
-``runtime/``, ``ckpt/``) so each module's counterpart is easy to find.  It imports neither ``jax`` nor
+``runtime/``, ``ckpt/``, ``launch/``; and the model serving path's
+``configs/``, ``models/``, ``serve/``) so each module's counterpart is easy
+to find.  It imports neither ``jax`` nor
 ``repro``; the JAX package is the reference it is tested against.
 
 Entry points run on ``cuda`` by default and raise when no card is
