@@ -68,7 +68,16 @@ full-scale setting:
   the continuous-batching server at the reference server's defaults, then
   teacher forcing with an 8192-token prompt past the local window (prefill
   and 32 decode steps == forward); and a 2-layer full-width gemma2-2b held
-  to the reference's logits (``SERVE_PIN``).
+  to the reference's logits (``SERVE_PIN``);
+* the training path (``repro_torch.launch.train``; torch ops and
+  autograd, no kernel of its own): that 2-layer model's two f32 train
+  steps held to the reference's (``TRAIN_PIN``); every model family at
+  ``reduced`` trained on the card, each step held to the same step on the
+  CPU, the DiSketch gradient compressor on for a dense and an MoE arch;
+  gemma2-2b at full width and depth in bf16 (f32 AdamW moments) for ten
+  steps at the reference launcher's defaults, three steps with the
+  compressor (D = 3 204 165 888), and a run killed after its step-2
+  checkpoint and restarted from it to the uninterrupted run's loss.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
@@ -77,7 +86,8 @@ that the answers are right: the RMSEs and entropies are pinned to the JAX
 reference's values at this setting, and so are the control plane's
 applied configs, stale epochs and protocol counters, the export
 plane's protocol counters and crash report, the chaos harness's
-report, crash log and n trajectory, and the serving path's logits.
+report, crash log and n trajectory, the serving path's logits and the
+training path's losses, grad norms and updated weights.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -340,6 +350,7 @@ CHAOS_PIN = {
 # tokens == forward, SERVE_TF_STEPS decode steps == forward at their
 # positions, within tests/test_models.py's 2e-4 and 3e-4.
 SERVE_ARCH, SERVE_REQUESTS, SERVE_BATCH = "gemma2-2b", 16, 4
+TRAIN_ARCH = SERVE_ARCH
 SERVE_PROMPT_LEN, SERVE_MAX_NEW, SERVE_MAX_LEN = 32, 32, 128
 SERVE_TF, SERVE_TF_STEPS = 8192, 32
 # SERVE_PIN (scripts/reference_pins.py serve): the reference's prefill of a
@@ -355,6 +366,59 @@ SERVE_PIN = {"ids": [120291, 195470, 74226, 183713, 68896, 99161, 243920,
                         4.445533752441406, 4.242554187774658,
                         4.128481864929199, 4.020838737487793]}
 SERVE_PIN_RTOL = 1e-4
+# The training path (the train phase).  (a) every arch at ``reduced``,
+# TRAIN_A_STEPS steps at batch 2 x 32, card == CPU, the compressor on for
+# TRAIN_A_COMPRESS; (b) full-width gemma2-2b through launch/train.py::train
+# at the reference launcher's defaults (TRAIN_FULL; its last step
+# profiled), then TRAIN_COMPRESS (batch cut to 2 x 512: the residual and
+# the sketch need 13.6 GB more; two steps, one a subepoch), then a run
+# killed after step TRAIN_RESTART_AT, checkpointed there by its cadence
+# (one 32 GB checkpoint: the card's machine takes ~45 GiB of disk writes
+# a run), and its restart.
+TRAIN_A_STEPS, TRAIN_A_COMPRESS = 3, ("granite-8b", "olmoe-1b-7b")
+TRAIN_FULL = dict(steps=10, batch=8, seq=512, lr=3e-4, schedule="cosine")
+TRAIN_COMPRESS = dict(TRAIN_FULL, steps=2, batch=2, compress=True)
+TRAIN_RESTART_AT = 2
+# H100 SXM dense bf16 tensor-core peak, FLOP/s (NVIDIA data sheet, at
+# 700 W): the share of it is 6 N tokens / time, N every parameter.
+BF16_PEAK = 989e12
+# TRAIN_PIN (scripts/reference_pins.py train): SERVE_PIN's 2-layer
+# full-width gemma2-2b and f32 weights, TRAIN_STEPS steps of the
+# reference's jitted train step (remat on, no compressor) on
+# SyntheticLM(seed=TRAIN_SEED) batches of TRAIN_BATCH x TRAIN_SEQ, cosine
+# schedule over TRAIN_STEPS steps at TRAIN_LR; each step's loss and grad
+# norm, and final_norm after the steps at TRAIN_NORM_AT, its L2 norm and
+# its AdamW moment m at TRAIN_NORM_AT.  Losses, grad norms and final_norm
+# are held to TRAIN_PIN_RTOL; m, linear in the gradients, to
+# TRAIN_PIN_M_RTOL (L2 over the sampled entries), which must also fail
+# the same steps run with TF32 matmuls (the control).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, TRAIN_LR = 2, 1, 64, 5, 3e-4
+TRAIN_NORM_AT = tuple(range(0, 2304, 144))
+TRAIN_PIN = {"loss": [12.95075798034668, 12.204660415649414],
+             "grad_norm": [20.976839065551758, 20.607784271240234],
+             "final_norm": [
+                 -0.00046202001976780593, -0.00022345576144289225,
+                 -0.00035227692569606006, -0.0004262249276507646,
+                 0.0004495115135796368, -0.00042992038652300835,
+                 0.000463123491499573, -0.00044377363519743085,
+                 -0.0004610978940036148, 0.0004349738883320242,
+                 -0.0004623459535650909, 0.0004649473412428051,
+                 -0.0004126355051994324, 0.00032589028705842793,
+                 0.0004567954165395349, 0.00042517040856182575],
+             "final_norm_l2": 0.018617669760620122,
+             "m": [
+                 6.383368599927053e-05, -1.1554468983376864e-05,
+                 1.3327062333701178e-05, 8.235851964855101e-06,
+                 -1.7222491806023754e-05, 1.632757266634144e-05,
+                 -2.504756957932841e-05, 1.4792236470384523e-05,
+                 3.3765496482374147e-05, -1.709364732960239e-05,
+                 2.2258634999161586e-05, -1.305070509260986e-05,
+                 1.3489181583281606e-05, -3.3777016597014153e-06,
+                 -3.686601485242136e-05, -4.029227056889795e-05]}
+TRAIN_PIN_RTOL = 1e-5
+# m's limit lies between the f32 steps' reading on an H100 (1.18e-5) and
+# the TF32 control's (1.04e-3).
+TRAIN_PIN_M_RTOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -3105,14 +3169,15 @@ def _serve_pinned(dev):
          f"numpy-seeded weights ({init_s:.1f} s to draw and copy): top-8 ids "
          f"== the reference's, logits within {rel:.3g} relative "
          f"({SERVE_PIN_RTOL})")
-    return rel
+    return rel, params
 
 
 def serve_phase(dev):
     """The model serving path: (a) every family at ``reduced`` on the card
     == on the CPU; (b) full-width gemma2-2b: the server and teacher
     forcing; (c) ``SERVE_PIN``.  The path runs torch ops only: no launch of
-    B1, B2 or B3."""
+    B1, B2 or B3.  Returns ``{"pin_params": ...}``: (c)'s numpy-seeded
+    weights, which the train phase's ``TRAIN_PIN`` starts from."""
     import torch
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -3124,13 +3189,461 @@ def serve_phase(dev):
     torch.cuda.empty_cache()
     res.update(_serve_full(dev))
     torch.cuda.empty_cache()
-    res["pin_rel"] = _serve_pinned(dev)
-    torch.cuda.empty_cache()
+    res["pin_rel"], params = _serve_pinned(dev)
     counts = read_counts()
     if any(counts.values()):
         raise AssertionError(f"serve launched sketch kernels: {counts}")
     _log(f"serve   sketch kernel launches on the serving path: {counts}")
     _log(json.dumps({"serve": res}))
+    return {"pin_params": params}
+
+
+# -- the training path ---------------------------------------------------------
+
+def _mostly_close(what, got, want, rtol, lr_sum=None, per_leaf=True,
+                  frac=0.0):
+    """Coordinates of ``got`` off ``want`` by more than ``rtol`` of their
+    leaf's (``per_leaf=False``: the whole tree's) largest |value|: fail
+    if more than ``frac`` of them are, or (with ``lr_sum``) if any is off
+    by more than ``2 * lr_sum``.  Returns (coordinates off, worst error
+    over the scale).  Adam divides by sqrt(v_hat) + eps, so a parameter
+    whose gradient cancels to the eps scale takes a learning-rate-sized
+    step whose size follows its rounding; and a compressed step keeps or
+    leaves an estimate within rounding of its threshold."""
+    wants = [w.float() for w in want]
+    top = max(float(w.abs().max()) for w in wants)
+    off = n = 0
+    worst = 0.0
+    for g, w in zip(got, wants):
+        scale = max(float(w.abs().max()) if per_leaf else top, 1e-30)
+        err = (g.float().cpu() - w).abs()
+        off += int((err > rtol * scale).sum())
+        n += err.numel()
+        worst = max(worst, float(err.max()) / scale)
+        if lr_sum is not None and not float(err.max()) <= 2 * lr_sum:
+            raise AssertionError(f"{what}: off by {float(err.max())} > 2 x "
+                                 f"the learning rates ({lr_sum})")
+    if not off <= frac * n:
+        raise AssertionError(f"{what}: {off} of {n} coordinates off by more "
+                             f"than {rtol} of the largest |value|")
+    return off, worst
+
+
+def _kept_band(comp, grads, resid, step, rel=1e-5):
+    """One ``apply`` of ``comp`` on these inputs, without changing them:
+    (coordinates kept, estimates within ``rel`` of the threshold, the
+    threshold)."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    flat_g, flat_r = leaves(grads), leaves(resid)
+    cur = step % comp.n_sub
+    sk = torch.zeros((comp.depth, comp.width), dtype=torch.float32,
+                     device=flat_g[0].device)
+    for acc, idx, active, _ in comp._passes(flat_g, flat_r, cur):
+        comp.sketch(acc, idx, active, out=sk)
+    thresh = comp.kth_largest(comp.k_of(sum(g.numel() for g in flat_g)),
+                              lambda: comp._magnitudes(sk, flat_g, flat_r,
+                                                       cur))
+    kept = band = 0
+    for mag in comp._magnitudes(sk, flat_g, flat_r, cur):
+        kept += int(((mag >= thresh) & (mag > 0)).sum())
+        band += int(((mag - thresh).abs() <= rel * thresh).sum())
+    return kept, band, float(thresh)
+
+
+def _train_arch(dev, name):
+    """One family at ``reduced``: TRAIN_A_STEPS steps of
+    ``make_train_step`` on the card and on the CPU from the same
+    numpy-seeded weights and batches; with the compressor (TRAIN_A_COMPRESS)
+    its first step's selection also runs alone on both from the same
+    inputs."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import make_compressor
+    from repro_torch.models import model as PM
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import train_step as PT
+    from repro_torch.tree import leaves, tree_map
+
+    cpu, b, s = torch.device("cpu"), 2, 32
+    cfg = reduced(get_config(name))
+    host = PM.init_params(np.random.default_rng(0), cfg, dtype=torch.float32,
+                          device=cpu)
+    compress = name in TRAIN_A_COMPRESS
+    comp = make_compressor(sum(p.numel() for p in leaves(host))) \
+        if compress else None
+    data = SyntheticLM(cfg.vocab, s, b, seed=0)
+    batches = []
+    for i in range(TRAIN_A_STEPS):
+        bt = {k: torch.from_numpy(v).long() for k, v in data.batch(i).items()}
+        if cfg.embed_inputs:
+            bt["tokens"] = torch.from_numpy(np.random.default_rng(
+                i).standard_normal((b, s, cfg.d_model), dtype=np.float32))
+        batches.append(bt)
+    if compress:
+        grads, _, _ = PT.grads_of(host, batches[0]["tokens"],
+                                  batches[0]["labels"], cfg, remat=True)
+        zero = comp.init(host).residual
+        kb = [_kept_band(comp, tree_map(lambda t: t.to(where), grads),
+                         tree_map(lambda t: t.to(where), zero), 0)
+              for where in (cpu, dev)]
+        if abs(kb[0][0] - kb[1][0]) > kb[0][1] + kb[1][1]:
+            raise AssertionError(
+                f"compressor kept {kb[1][0]} on the card, {kb[0][0]} on the "
+                f"CPU, more apart than the {kb[0][1]} + {kb[1][1]} estimates "
+                f"within 1e-5 of the threshold")
+    # Each step starts on both devices from the CPU run's state (copied
+    # to the card before the CPU step writes it in place), so the card is
+    # held to the same function on the same inputs every step; a
+    # trajectory would compound Adam's eps-scale coordinates (and MoE
+    # routing near ties) into later steps.
+    step = PT.make_train_step(cfg, PO.cosine_schedule(1e-3, 0, 10),
+                              compressor=comp)
+    c_st = PT.init_train_state(tree_map(lambda t: t.clone(), host), comp)
+    hist, worst, off, moments = [], 0.0, 0, [(0, 0.0), (0, 0.0)]
+    for i, bt in enumerate(batches):
+        g_st, g_m = step(tree_map(lambda t: t.to(dev, copy=True), c_st),
+                         {k: v.to(dev) for k, v in bt.items()})
+        c_st, c_m = step(c_st, bt)
+        hist.append({k: float(v) for k, v in c_m.items()})
+        for k in ("loss", "grad_norm"):
+            _pinned(f"step {i} {k} (card vs CPU)", float(g_m[k]),
+                    float(c_m[k]), 1e-5)
+        lr = hist[-1]["lr"]
+        mo = [_mostly_close(w, leaves(getattr(g_st.opt, w)),
+                            leaves(getattr(c_st.opt, w)), 5e-5, frac=1e-4)
+              for w in ("m", "v")]
+        o, w_ = _mostly_close("params", leaves(g_st.params),
+                              leaves(c_st.params), 1e-5, lr_sum=lr,
+                              per_leaf=False, frac=1e-4)
+        off, worst = max(off, o), max(worst, w_)
+        moments = [(max(a[0], b_[0]), max(a[1], b_[1]))
+                   for a, b_ in zip(moments, mo)]
+        del g_st
+    n = sum(p.numel() for p in leaves(c_st.params))
+    extra = (f"; compressor kept {kb[1][0]} on the card, {kb[0][0]} on the "
+             f"CPU (within 1e-5 of the threshold: {kb[1][1]}, {kb[0][1]})"
+             ) if compress else ""
+    _log(f"train   {name} (reduced{', compressed' if compress else ''}): "
+         f"card == CPU at each of {TRAIN_A_STEPS} steps, losses "
+         f"{[round(h['loss'], 5) for h in hist]}; params: at most {off} of "
+         f"{n} off by > 1e-5 of max (worst {worst:.3g}); m, v: "
+         f"{moments[0][0]} and {moments[1][0]} off by > 5e-5 of their leaf's "
+         f"max (worst {max(mo[1] for mo in moments):.3g}){extra}")
+    return {"params_off": off, "params_worst": worst,
+            "moments_off": [mo[0] for mo in moments],
+            "moments_worst": max(mo[1] for mo in moments)}
+
+
+def _train_reduced(dev):
+    """(a) Every family at ``reduced``, card == CPU (``_train_arch``);
+    every family runs before a failure is raised."""
+    from repro_torch.configs import list_configs
+
+    out, failed = {}, []
+    for name in list_configs():
+        try:
+            out[name] = _train_arch(dev, name)
+        except AssertionError as e:
+            _log(f"train   {name} (reduced): FAILED {e}")
+            failed.append(f"{name}: {e}")
+    if failed:
+        raise AssertionError("train (a): " + "; ".join(failed))
+    return out
+
+
+def _pin_steps(dev, cfg, params):
+    """TRAIN_STEPS steps of ``make_train_step`` from ``params`` (updated
+    in place): each step's loss and grad norm, and ``final_norm`` and its
+    AdamW moment m after the steps (f64 numpy)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import train_step as PT
+
+    step = PT.make_train_step(cfg, PO.cosine_schedule(
+        TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+    state = PT.init_train_state(params)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=TRAIN_SEED)
+    hist = []
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, {k: torch.from_numpy(v).long().to(dev)
+                                for k, v in data.batch(i).items()})
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return (hist, state.params["final_norm"].double().cpu().numpy(),
+            state.opt.m["final_norm"].double().cpu().numpy())
+
+
+def _pin_errors(hist, norm, m):
+    """Relative errors of a ``_pin_steps`` run against TRAIN_PIN: losses
+    and grad norms (the worst), final_norm's and m's sampled entries (L2
+    of the difference over the pin's, and the worst entry over the
+    largest), final_norm's L2 norm."""
+    at = list(TRAIN_NORM_AT)
+    out = {"rel": max(abs(h[k] - TRAIN_PIN[k][i]) / abs(TRAIN_PIN[k][i])
+                      for i, h in enumerate(hist)
+                      for k in ("loss", "grad_norm")),
+           "final_norm_l2": abs(float(np.linalg.norm(norm))
+                                / TRAIN_PIN["final_norm_l2"] - 1)}
+    for name, got in (("final_norm", norm[at]), ("m", m[at])):
+        want = np.asarray(TRAIN_PIN[name])
+        out[f"{name}_err"] = float(np.linalg.norm(got - want)
+                                   / np.linalg.norm(want))
+        out[f"{name}_worst"] = float(np.abs(got - want).max()
+                                     / np.abs(want).max())
+    return out
+
+
+def _train_pinned(dev, params):
+    """(c) TRAIN_PIN: SERVE_PIN's 2-layer full-width gemma2-2b (its f32
+    weights, on the card), TRAIN_STEPS steps of ``make_train_step``; then
+    the control, the same steps from a copy of the weights with TF32
+    matmuls, which m's limit must catch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    copy = tree_map(lambda t: t.clone(), params)
+    hist, norm, m = _pin_steps(dev, cfg, params)
+    del params
+    for i, h in enumerate(hist):
+        for k in ("loss", "grad_norm"):
+            _pinned(f"TRAIN_PIN {k} {i}", h[k], TRAIN_PIN[k][i],
+                    TRAIN_PIN_RTOL)
+    _pinned("TRAIN_PIN final_norm l2", float(np.linalg.norm(norm)),
+            TRAIN_PIN["final_norm_l2"], TRAIN_PIN_RTOL)
+    err = _pin_errors(hist, norm, m)
+    # The updated entries follow Adam's per-entry division by
+    # sqrt(v_hat): each is about -lr sign(g), its error the learning rate
+    # times its own gradient's relative error; so they are held as a
+    # vector.  m is linear in the gradients.
+    if not err["final_norm_err"] <= TRAIN_PIN_RTOL:
+        raise AssertionError(f"TRAIN_PIN final_norm: its entries off by "
+                             f"{err['final_norm_err']:.3g} relative (L2; > "
+                             f"{TRAIN_PIN_RTOL})")
+    if not err["m_err"] <= TRAIN_PIN_M_RTOL:
+        raise AssertionError(f"TRAIN_PIN m: its entries off by "
+                             f"{err['m_err']:.3g} relative (L2; > "
+                             f"{TRAIN_PIN_M_RTOL})")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = _pin_errors(*_pin_steps(dev, cfg, copy))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del copy
+    if not ctl["m_err"] > TRAIN_PIN_M_RTOL:
+        raise AssertionError(f"TRAIN_PIN m: the TF32 control is within "
+                             f"{ctl['m_err']:.3g} of the pin, inside the "
+                             f"limit {TRAIN_PIN_M_RTOL}: the pin cannot tell "
+                             f"its gradients from f32 ones")
+    for what, e in (("f32", err), ("TF32 control", ctl)):
+        _log(f"train   TRAIN_PIN ({what}): {SERVE_LAYERS}-layer full-width "
+             f"{SERVE_ARCH}, {TRAIN_STEPS} steps at {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ}: losses and grad norms within {e['rel']:.3g} "
+             f"relative; final_norm's entries within "
+             f"{e['final_norm_err']:.3g} (L2; the worst entry "
+             f"{e['final_norm_worst']:.3g} of the largest), its L2 norm "
+             f"within {e['final_norm_l2']:.3g} ({TRAIN_PIN_RTOL}); m within "
+             f"{e['m_err']:.3g} (L2; the worst entry {e['m_worst']:.3g} of "
+             f"the largest; {TRAIN_PIN_M_RTOL})")
+    return {**err, "control": ctl}
+
+
+def _step_line(what, h, n):
+    share = 6 * n * h["tokens_per_s"] / BF16_PEAK
+    extra = (f"; compressor {h['compress_ms']:.1f} ms, k {h['k']}, kept "
+             f"{h['kept']} ({h['tied']} at the threshold)"
+             if "k" in h else "")
+    _log(f"train   {what} step {h['step']}: loss {h['loss']:.6f}, grad norm "
+         f"{h['grad_norm']:.6f}, {h['ms']:.2f} ms, {h['tokens_per_s']:.1f} "
+         f"tokens/s, {100 * share:.2f}% of the bf16 dense peak (6 N tokens "
+         f"/ time, N = {n}, {BF16_PEAK:.3g} FLOP/s), peak "
+         f"{h['peak_bytes']} B{extra}")
+
+
+def _profile_summary(prof, step_ms):
+    """The device's busy share of one profiled train step and where its
+    time goes (matmul kernels, AdamW's ``multi_tensor_apply`` kernels, the
+    rest)."""
+    ev = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    kinds = {"matmul": 0.0, "adamw": 0.0, "other": 0.0}
+    for e in ev:
+        name = e.key.lower()
+        kind = "adamw" if "multi_tensor_apply" in name else "matmul" if any(
+            w in name for w in ("gemm", "cutlass", "xmma", "nvjet")) \
+            else "other"
+        kinds[kind] += e.self_device_time_total / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    _log(f"train   profile of full step {TRAIN_FULL['steps']} "
+         f"({TRAIN_FULL['batch']} x {TRAIN_FULL['seq']}, profiler on): "
+         f"device busy {busy:.1f} of {step_ms:.1f} ms (CUDA events; "
+         f"{100 * busy / step_ms:.1f}%), {sum(e.count for e in ev)} device "
+         f"events; matmul kernels {kinds['matmul']:.1f} ms, AdamW's foreach "
+         f"kernels {kinds['adamw']:.1f} ms, the rest {kinds['other']:.1f} "
+         f"ms; heaviest: " + "; ".join(
+             f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x"
+             f"{e.count}" for e in top))
+    return {"busy_ms": busy, "step_ms": step_ms, **kinds,
+            "events": sum(e.count for e in ev)}
+
+
+def _train_full(dev, ceiling):
+    """(b) gemma2-2b at full width and depth, bf16, through
+    ``launch/train.py::train``: TRAIN_FULL, its last step under
+    torch.profiler (started and stopped by the step log lines), then
+    TRAIN_COMPRESS, then a checkpoint after step TRAIN_RESTART_AT of a
+    TRAIN_FULL run and a restart, whose next loss must be TRAIN_FULL's.
+    Each run must start with at most ``ceiling`` bytes held on the card:
+    more means an earlier run's tensors are still alive."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.tree import leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    out, counted, held = {}, [], []
+
+    def quiet(msg):
+        if not msg.startswith("step "):
+            _log(f"train   {msg}")
+
+    last = TRAIN_FULL["steps"]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def profiling(msg):          # train() logs each step after it ends
+        quiet(msg)
+        if msg.startswith(f"step {last - 1:5d} "):
+            prof.start()
+        elif msg.startswith(f"step {last:5d} "):
+            prof.stop()
+
+    def run(what, log=quiet, **kw):
+        torch.cuda.empty_cache()
+        held.append(torch.cuda.memory_allocated(dev))
+        if held[-1] > ceiling:
+            raise AssertionError(
+                f"train {what}: {held[-1]} B held on the card before the "
+                f"run, more than the {ceiling} B at the phase's start: an "
+                f"earlier run's tensors are still alive")
+        h0 = time.perf_counter()
+        state, hist = LT.train(cfg, seed=0, log_every=1, device=dev,
+                               log=log, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - h0
+        counted.append(sum(p.numel() for p in leaves(state.params)))
+        del state
+        torch.cuda.empty_cache()
+        for h in hist:
+            if not (math.isfinite(h["loss"]) and math.isfinite(
+                    h["grad_norm"])):
+                raise AssertionError(f"train {what}: step {h['step']} {h}")
+            _step_line(what, h, counted[-1])
+        return hist, wall
+
+    full, wall = run("full", log=profiling, **TRAIN_FULL)
+    if not abs(full[0]["loss"] - math.log(cfg.vocab)) < 1.0:
+        raise AssertionError(f"train full: first loss {full[0]['loss']} "
+                             f"is not near ln(vocab) {math.log(cfg.vocab)}")
+    steady = [h["ms"] for h in full[1:-1]]    # not the first, not profiled
+    out["full"] = {"ms_median": float(np.median(steady)),
+                   "tokens_per_s": TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+                   / (float(np.median(steady)) / 1e3),
+                   "peak_bytes": max(h["peak_bytes"] for h in full),
+                   "wall_s": wall}
+    out["full"]["peak_share"] = 6 * counted[0] * \
+        out["full"]["tokens_per_s"] / BF16_PEAK
+    out["profile"] = _profile_summary(prof, full[-1]["ms"])
+    del prof
+    comp, wall = run("compressed", **TRAIN_COMPRESS)
+    for h in comp:
+        if not h["k"] <= h["kept"] < h["k"] + h["tied"]:
+            raise AssertionError(
+                f"train compressed step {h['step']}: kept {h['kept']} with "
+                f"{h['tied']} at the threshold, k {h['k']}: the threshold "
+                f"is not the k-th largest estimate")
+    out["compressed"] = {"ms": [h["ms"] for h in comp],
+                         "compress_ms": [h["compress_ms"] for h in comp],
+                         "k": comp[0]["k"],
+                         "kept": [h["kept"] for h in comp],
+                         "tied": [h["tied"] for h in comp],
+                         "peak_bytes": max(h["peak_bytes"] for h in comp),
+                         "wall_s": wall}
+    d = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        first, wall1 = run("preempted", ckpt_dir=d,
+                           ckpt_every=TRAIN_RESTART_AT,
+                           until=TRAIN_RESTART_AT, **TRAIN_FULL)
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+        rest, wall2 = run("restarted", ckpt_dir=d,
+                          ckpt_every=TRAIN_RESTART_AT,
+                          until=TRAIN_RESTART_AT + 1, **TRAIN_FULL)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for what, hist in (("preempted", first), ("restarted", rest)):
+        for h in hist:
+            want = full[h["step"] - 1]
+            for k in ("loss", "grad_norm"):
+                _pinned(f"train {what} step {h['step']} {k}", h[k], want[k],
+                        1e-6)
+    (h,) = rest
+    want = full[h["step"] - 1]
+    _log(f"train   restart: checkpoint of {size} B after step "
+         f"{TRAIN_RESTART_AT} (the preempted run {wall1:.1f} s), restarted "
+         f"run {wall2:.1f} s; step {h['step']} loss {h['loss']!r} against "
+         f"the uninterrupted {want['loss']!r}, grad norm "
+         f"{h['grad_norm']!r} against {want['grad_norm']!r}")
+    _log(f"train   held on the card before each full-width run (full, "
+         f"compressed, preempted, restarted): {held} B, at most {ceiling} "
+         f"B")
+    out["restart"] = {"ckpt_bytes": size, "preempted_s": wall1,
+                      "restarted_s": wall2,
+                      "loss_equal": h["loss"] == want["loss"]}
+    out["held_bytes"] = held
+    return out
+
+
+def train_phase(dev, served):
+    """The training path: (c) ``TRAIN_PIN`` from the serve phase's 2-layer
+    weights; (a) every family at ``reduced`` on the card == on the CPU;
+    (b) full-width gemma2-2b: ten steps, three compressed, a checkpoint and
+    a restart.  Torch ops and autograd only: no launch of B1, B2 or B3."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    _log(f"train   torch.backends.cuda.matmul.allow_tf32 = {tf32}")
+    if tf32:
+        raise AssertionError("TF32 matmuls are on: f32 would not mean f32")
+    reset_counts()
+    # the pinned weights are the only tensors of the phase held now; each
+    # full-width run must find the card back at this or below
+    ceiling = torch.cuda.memory_allocated(dev) + (256 << 20)
+    res = {"pin": _train_pinned(dev, served.pop("pin_params"))}
+    torch.cuda.empty_cache()
+    res["reduced"] = _train_reduced(dev)
+    torch.cuda.empty_cache()
+    res.update(_train_full(dev, ceiling))
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train launched sketch kernels: {counts}")
+    _log(f"train   sketch kernel launches on the training path: {counts}")
+    _log(json.dumps({"train": res}))
     return res
 
 
@@ -3375,6 +3888,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
         from repro_torch.kernels import build
+        # imported here, on a shallow stack: model.py imports torch._dynamo,
+        # whose import keeps the importing frames alive (see model.py)
+        from repro_torch.models import model  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
@@ -3411,7 +3927,8 @@ def main() -> int:
         export = _phase(export_phase, sc, res)
         chaos = _phase(chaos_phase, dev, sc, res)
         sharded = _phase(sharded_phase, dev, sc)
-        _phase(serve_phase, dev)
+        served = _phase(serve_phase, dev)
+        _phase(train_phase, dev, served)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [

@@ -9,7 +9,7 @@ device G-sum.
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn, control, export, chaos, serve (default: all).  Prints one ``name
+churn, control, export, chaos, serve, train (default: all).  Prints one ``name
 value`` line per result, then one JSON object.  All sections take a few minutes at this
 full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
 CPU, ``control`` under 45 s, ``export`` under 30 s, ``chaos`` under 60 s.
@@ -65,6 +65,19 @@ the top-8 token ids and values of the last position's logits.  The port's
 own prefill on this CPU is printed beside it for comparison.  It peaks
 at about 10 GB of host memory (1.34 G parameters, in numpy and in jax),
 takes 30 to 40 s on an 8-core x86 CPU, and needs no workload.
+
+The ``train`` section is the training path's pin (``TRAIN_PIN``): the
+same 2-layer full-width gemma2-2b and f32 weights as ``serve``, then
+``TRAIN_STEPS`` steps of the reference's jitted ``make_train_step`` (remat
+on, no compressor) on ``SyntheticLM(seed=TRAIN_SEED)`` batches of
+``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, under the launcher's cosine
+schedule for ``TRAIN_STEPS`` steps at ``TRAIN_LR``; the pin is each
+step's loss and grad norm, the updated ``final_norm`` at
+``TRAIN_NORM_AT`` and its L2 norm, and its AdamW moment m at
+``TRAIN_NORM_AT``.  The port's own steps on this CPU are
+run after the reference's (one state at a time) and printed beside them.
+It peaks at about 27 GB of host memory (1.34 G parameters with their
+gradients and f32 moments) and needs no workload.
 """
 import hashlib
 import json
@@ -96,7 +109,8 @@ BASE_MEM, GINI, WINDOW = 128 * 1024, 0.4, 8
 RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
-            "um_window", "churn", "control", "export", "chaos", "serve")
+            "um_window", "churn", "control", "export", "chaos", "serve",
+            "train")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 # the export phase: protocol rounds after each window dispatch, the
@@ -112,6 +126,10 @@ CHAOS_MAX_RETRIES = 12
 # the serve phase's pin: layers kept of gemma2-2b, the weights' seed, the
 # prompt's length and seed, and how many of the last logits are pinned
 SERVE_LAYERS, SERVE_SEED, SERVE_PROMPT, SERVE_TOP = 2, 11, 16, 8
+# the train phase's pin: steps, batch, sequence, data seed, learning rate,
+# and the final_norm entries pinned
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, TRAIN_LR = 2, 1, 64, 5, 3e-4
+TRAIN_NORM_AT = tuple(range(0, 2304, 144))
 
 out = {}
 
@@ -431,7 +449,9 @@ def path_groups(paths):
 def main(sections):
     if "serve" in sections:
         serve()
-    if set(sections) <= {"serve"}:
+    if "train" in sections:
+        train()
+    if set(sections) <= {"serve", "train"}:
         print(json.dumps(out))
         return
     topo = FatTree(4)
@@ -735,6 +755,83 @@ def serve():
          np.argsort(-port, kind="stable")[:SERVE_TOP].tolist() == top.tolist())
     save("serve port top logits, max relative error",
          float(np.max(np.abs(port[top] - last[top]) / np.abs(last[top]))))
+
+
+def train():
+    """The train phase's pin: the reference's jitted train step, twice,
+    through full-width gemma2-2b cut to ``SERVE_LAYERS`` layers from the
+    serve pin's f32 weights; then the port's step on this CPU."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs import get_config
+    from repro.data.pipeline import SyntheticLM
+    from repro.train import optimizer as RO
+    from repro.train import train_step as RT
+    from repro_torch.models import convert
+    from repro_torch.models import model as PM
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import train_step as PT
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=SERVE_LAYERS)
+    params = PM.init_params(np.random.default_rng(SERVE_SEED), cfg,
+                            dtype=torch.float32, device="cpu")
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=TRAIN_SEED)
+    state = RT.init_train_state(jax.tree.map(
+        lambda a: jnp.array(a, copy=True), convert.to_numpy(params)))
+    del params
+    step = jax.jit(RT.make_train_step(
+        cfg, RO.cosine_schedule(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS),
+        sp=False), donate_argnums=0)
+    ref = []
+    for s in range(TRAIN_STEPS):
+        state, m = step(state, {k: jnp.asarray(v) for k, v in
+                                data.batch(s).items()})
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+        save(f"train loss {s}", ref[-1][0])
+        save(f"train grad_norm {s}", ref[-1][1])
+    norm = np.asarray(state.params["final_norm"], np.float64)
+    moment = np.asarray(state.opt.m["final_norm"], np.float64)
+    del state, step
+    save("train final_norm", [float(norm[i]) for i in TRAIN_NORM_AT])
+    save("train final_norm l2", float(np.linalg.norm(norm)))
+    save("train final_norm m", [float(moment[i]) for i in TRAIN_NORM_AT])
+    # the port on this CPU, for comparison (the smoke holds the card's)
+    params = PM.init_params(np.random.default_rng(SERVE_SEED), cfg,
+                            dtype=torch.float32, device="cpu")
+    pstate = PT.init_train_state(params)
+    del params
+    pstep = PT.make_train_step(cfg, PO.cosine_schedule(
+        TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+    rel = 0.0
+    for s in range(TRAIN_STEPS):
+        b = {k: torch.from_numpy(v).long() for k, v in
+             data.batch(s).items()}
+        pstate, m = pstep(pstate, b)
+        rel = max(rel, abs(float(m["loss"]) - ref[s][0]) / ref[s][0],
+                  abs(float(m["grad_norm"]) - ref[s][1]) / ref[s][1])
+    got = pstate.params["final_norm"].double().numpy()
+    err = np.abs(got - norm) / np.abs(norm).max()
+    at = list(TRAIN_NORM_AT)
+    save("train port loss and grad_norm, max relative error", rel)
+    save("train port final_norm at TRAIN_NORM_AT, max error over max "
+         "|final_norm|, and the L2 relative error", [
+             float(err[at].max()), float(np.linalg.norm(got[at] - norm[at])
+                                         / np.linalg.norm(norm[at]))])
+    m = pstate.opt.m["final_norm"].double().numpy()
+    save("train port final_norm m at TRAIN_NORM_AT, max error over max "
+         "|m|", float(np.abs(m[at] - moment[at]).max()
+                      / np.abs(moment[at]).max()))
+    save("train port final_norm l2, relative error",
+         abs(float(np.linalg.norm(got)) - float(np.linalg.norm(norm)))
+         / float(np.linalg.norm(norm)))
+    # all 2304 entries: Adam moves an entry whose gradient cancels to the
+    # eps scale by a step its rounding decides; count those off by > 1e-5
+    save("train port final_norm, entries off by > 1e-5 of max, and the "
+         "worst (index, error over max)",
+         [int((err > 1e-5).sum()), int(err.argmax()), float(err.max())])
 
 
 if __name__ == "__main__":

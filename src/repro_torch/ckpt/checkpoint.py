@@ -16,80 +16,88 @@ Contract:
   * checksums (crc32 of raw bytes) catch torn writes on restore;
   * ``keep`` pruning bounds disk usage for long runs.
 
-A tree is a nested list, tuple or dict (keys in sorted order) of numpy
-arrays, torch tensors or scalars; tensors are saved through
-``.detach().cpu().numpy()``.  The manifest's ``treedef`` is a string that
+A tree is a nested list, tuple (a ``NamedTuple`` included, rebuilt by
+its fields) or dict of numpy arrays, torch tensors or scalars, flattened
+in ``jax.tree.flatten``'s order (``repro_torch.tree``: sorted dict keys,
+tuple fields in order).  A tensor's bytes are copied to the host leaf by
+leaf; a bfloat16 leaf is written as its bit pattern, as the reference
+writes jax's bfloat16.  The manifest's ``treedef`` is a string that
 restore never parses, so a checkpoint written by either package restores
 through the other's ``restore_checkpoint`` given a ``like_tree`` with the
-same leaves in the same order (e.g. a list of numpy arrays).
+same leaves in the same order: a training state restores across the two
+packages, and a list of numpy arrays will do.  Given tensors, restore
+returns tensors, on the like tensors' device or on ``device``.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
 import zlib
-from typing import Any, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-
-class _TreeDef:
-    """The container structure of a tree: ``None`` for a leaf, else
-    ``(type, keys, children)``; ``unflatten`` rebuilds it around new
-    leaves."""
-
-    def __init__(self, node):
-        self._node = node
-
-    def unflatten(self, leaves: List[Any]):
-        it = iter(leaves)
-
-        def build(node):
-            if node is None:
-                return next(it)
-            kind, keys, children = node
-            built = [build(c) for c in children]
-            if kind is dict:
-                return dict(zip(keys, built))
-            return kind(built)
-
-        return build(self._node)
-
-    def __str__(self) -> str:
-        def show(node):
-            if node is None:
-                return "*"
-            kind, keys, children = node
-            if kind is dict:
-                return "{" + ", ".join(f"{k!r}: {show(c)}" for k, c in
-                                       zip(keys, children)) + "}"
-            body = ", ".join(show(c) for c in children)
-            return f"({body},)" if kind is tuple else f"[{body}]"
-
-        return show(self._node)
+from ..tree import flatten
 
 
-def _flatten(tree) -> Tuple[list, _TreeDef]:
-    leaves: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (dict, keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node), None, [walk(c) for c in node])
-        leaves.append(node)
-        return None
-
-    return leaves, _TreeDef(walk(tree))
-
-
-def _to_numpy(leaf) -> np.ndarray:
+def _write_leaf(path: str, leaf) -> Tuple[list, str, int]:
+    """Write one leaf as the ``.npy`` file ``np.save`` would write and
+    return its manifest entry: ``(shape, dtype name, crc32 of the file)``.
+    Shape and dtype come from the tensor itself; only its bytes cross to
+    the host.  A bfloat16 tensor is written as its 16-bit pattern with the
+    descr ``'<V2'`` and the dtype name ``"bfloat16"``: the bytes numpy
+    writes for jax's ``ml_dtypes.bfloat16`` (the reference's layout)."""
+    descr = None
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            arr, descr, name = t.view(torch.int16).numpy(), "<V2", "bfloat16"
+        else:
+            arr = t.numpy()
+            name = str(arr.dtype)
+    else:
+        arr = np.asarray(leaf)
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
+        name = str(arr.dtype)
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    if descr is not None:
+        header["descr"] = descr
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, header)
+    data = memoryview(arr.reshape(-1).view(np.uint8))
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+        f.write(data)
+    crc = zlib.crc32(data, zlib.crc32(buf.getvalue()))
+    return list(arr.shape), name, crc
+
+
+def _read_leaf(fpath: str, meta: dict, like, i: int, device):
+    """One leaf of a checkpoint, shaped and typed as ``like``: a tensor on
+    ``device`` (default: ``like``'s) when ``like`` is a tensor, else a
+    numpy array.  A ``"bfloat16"`` leaf is read through its bit pattern,
+    whichever package wrote it."""
+    arr = np.load(fpath)
+    shape = tuple(like.shape) if hasattr(like, "shape") else ()
+    if tuple(arr.shape) != shape:
+        raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != model "
+                         f"{shape}")
+    bf16 = meta.get("dtype") == "bfloat16"
+    if isinstance(like, torch.Tensor):
+        t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
+        if bf16:
+            t = t.view(torch.bfloat16)
+        return t.to(device=like.device if device is None else device,
+                    dtype=like.dtype)
+    if bf16:
+        arr = torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).float().numpy()
+    dtype = like.dtype if hasattr(like, "dtype") else np.asarray(like).dtype
+    return arr.astype(dtype)
 
 
 def _fsync_path(path: str) -> None:
@@ -109,7 +117,7 @@ def _fsync_path(path: str) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
                     extra: Optional[dict] = None) -> str:
     """Atomically save a tree checkpoint.  Returns the final path."""
-    leaves, treedef = _flatten(tree)
+    leaves, treedef = flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -120,14 +128,10 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
                 "n_leaves": len(leaves), "extra": extra or {},
                 "leaves": []}
     for i, leaf in enumerate(leaves):
-        arr = _to_numpy(leaf)
         fname = f"arr_{i:05d}.npy"
-        np.save(os.path.join(tmp, fname), arr)
-        with open(os.path.join(tmp, fname), "rb") as f:
-            crc = zlib.crc32(f.read())
+        shape, dtype, crc = _write_leaf(os.path.join(tmp, fname), leaf)
         manifest["leaves"].append({
-            "file": fname, "shape": list(arr.shape),
-            "dtype": str(arr.dtype), "crc32": crc})
+            "file": fname, "shape": shape, "dtype": dtype, "crc32": crc})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -173,10 +177,12 @@ def latest_step(ckpt_dir: str, limit: Optional[int] = None) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, like_tree, *,
                        step: Optional[int] = None,
-                       verify: bool = True):
+                       verify: bool = True, device=None):
     """Restore the newest committed checkpoint into ``like_tree``'s
-    structure, each leaf a numpy array of its like leaf's dtype.  Returns
-    (tree, step, extra) or (None, None, None).
+    structure, each leaf of its like leaf's shape and dtype: a tensor (on
+    ``device``, default the like tensor's own) where the like leaf is a
+    tensor, else a numpy array.  Returns (tree, step, extra) or (None,
+    None, None).
 
     With ``step=None`` (the restart path), a torn/corrupt trailing step
     — truncated array file, checksum mismatch, unreadable manifest —
@@ -188,25 +194,26 @@ def restore_checkpoint(ckpt_dir: str, like_tree, *,
     explicitly requested ``step`` still raises on any corruption.
     """
     if step is not None:
-        return _restore_step(ckpt_dir, like_tree, step, verify)
+        return _restore_step(ckpt_dir, like_tree, step, verify, device)
     steps = sorted(_committed_steps(ckpt_dir), reverse=True)
     if not steps:
         return None, None, None
     err: Optional[Exception] = None
     for s in steps:
         try:
-            return _restore_step(ckpt_dir, like_tree, s, verify)
+            return _restore_step(ckpt_dir, like_tree, s, verify, device)
         except (OSError, ValueError, KeyError,
                 json.JSONDecodeError) as e:
             err = err if err is not None else e
     raise err
 
 
-def _restore_step(ckpt_dir: str, like_tree, step: int, verify: bool):
+def _restore_step(ckpt_dir: str, like_tree, step: int, verify: bool,
+                  device):
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    leaves, treedef = _flatten(like_tree)
+    leaves, treedef = flatten(like_tree)
     assert manifest["n_leaves"] == len(leaves), \
         f"checkpoint has {manifest['n_leaves']} leaves, model has " \
         f"{len(leaves)} — architecture mismatch"
@@ -218,11 +225,5 @@ def _restore_step(ckpt_dir: str, like_tree, step: int, verify: bool):
                 crc = zlib.crc32(f.read())
             if crc != meta["crc32"]:
                 raise IOError(f"checksum mismatch in {fpath} — torn write")
-        arr = np.load(fpath)
-        like = _to_numpy(leaf)
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(
-                f"leaf {i}: checkpoint shape {arr.shape} != model "
-                f"{tuple(like.shape)}")
-        out.append(arr.astype(like.dtype))
+        out.append(_read_leaf(fpath, meta, leaf, i, device))
     return treedef.unflatten(out), step, manifest.get("extra", {})

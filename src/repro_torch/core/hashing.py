@@ -120,9 +120,12 @@ def mix32_torch(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_u32_torch(keys, seed) -> torch.Tensor:
+    """int64 twin of ``hash_u32``.  A Python-int ``seed`` is added as a
+    scalar (no host-to-device copy)."""
     keys = _u32(keys)
-    return mix32_torch((_mul32(keys, int(_SEED_MULT)) + _u32(seed).to(
-        keys.device)) & _MASK32)
+    seed = seed & _MASK32 if isinstance(seed, int) else \
+        _u32(seed).to(keys.device)
+    return mix32_torch((_mul32(keys, int(_SEED_MULT)) + seed) & _MASK32)
 
 
 def hash_mod_torch(keys, seed, mod) -> torch.Tensor:

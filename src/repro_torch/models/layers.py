@@ -82,9 +82,11 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 def softcap(logits, cap: float):
+    """``tanh(logits / cap) * cap``, out of place: tanh's backward reads
+    its own output, which an in-place multiply would overwrite."""
     if not cap:
         return logits
-    return (logits / cap).tanh_().mul_(cap)
+    return torch.tanh(logits / cap) * cap
 
 
 def swiglu(x, p):

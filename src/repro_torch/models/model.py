@@ -21,15 +21,25 @@ head stays.
 
 The parameters are plain nested dicts and lists of tensors with the
 reference's pytree layout and names (``layers.{i}.attn.wq`` …; see
-``convert.py``), all on one device, which the entry points follow.  The
-reference's ``remat`` and ``sp`` options (training and sequence
-parallelism) have no counterpart here.
+``convert.py``), all on one device, which the entry points follow.
+
+``forward(..., remat=True)`` recomputes each layer block in the backward
+pass (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+each block in ``jax.checkpoint``.  The reference's ``sp`` option (the
+residual stream sharded over a ``model`` mesh axis) has no counterpart:
+one model on one card has no mesh axis to shard over.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+# ``checkpoint`` imports torch._dynamo at its first call.  It is imported
+# here instead: that import leaves a reference cycle through a frame of
+# ``torch.fx.wrap`` that keeps every frame on the importing stack alive,
+# and with them a first train step's tensors, until a full collection.
+import torch._dynamo  # noqa: E402,F401
 
 from ..device import resolve_device
 from . import layers as L
@@ -151,8 +161,11 @@ def _attn_mlp_block(x, lp, cfg, *, positions, window, kv_cache, cache_len,
     return x + f, new_cache, aux
 
 
-def _backbone(params, x, cfg, *, positions, caches=None, cache_len=None):
+def _backbone(params, x, cfg, *, positions, caches=None, cache_len=None,
+              remat: bool = False):
     """Run the layer stack.  caches: per-layer decode caches (or None).
+    ``remat``: recompute each block in the backward pass (train/eval
+    forward only, as in the reference).
 
     Returns (hidden, new_caches, total_aux_loss).
     """
@@ -162,16 +175,24 @@ def _backbone(params, x, cfg, *, positions, caches=None, cache_len=None):
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def attn_block(xi, lpi, *, window, moe, cache):
-        return _attn_mlp_block(
-            xi, lpi, cfg, positions=positions, window=window,
-            kv_cache=cache, cache_len=cache_len, gemma2=gemma2, moe=moe)
+    def block(fn, *args, **kw):
+        if remat and not decode:
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
 
-    def mamba_block(xi, lpi, *, v2, cache):
+    def attn_block(xi, lpi, *, window, moe, cache):
+        return block(_attn_mlp_block, xi, lpi, cfg, positions=positions,
+                     window=window, kv_cache=cache, cache_len=cache_len,
+                     gemma2=gemma2, moe=moe)
+
+    def mamba_layer(xi, lpi, *, v2, cache):
         h = L.rms_norm(xi, lpi["ln1"], cfg.eps)
         fn = M.mamba2_block if v2 else M.mamba1_block
         y, st = fn(h, lpi["mamba"], cfg, state=cache)
         return xi + y, st
+
+    def mamba_block(xi, lpi, *, v2, cache):
+        return block(mamba_layer, xi, lpi, v2=v2, cache=cache)
 
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
         cache = caches[i] if decode else None
@@ -225,14 +246,16 @@ def _positions(start: int, s: int, device) -> torch.Tensor:
     return torch.arange(start, start + s, device=device)
 
 
-def forward(params, tokens, cfg, *, positions: Optional[torch.Tensor] = None):
-    """Train/eval forward: full-sequence logits (B, S, V) + aux loss."""
+def forward(params, tokens, cfg, *, positions: Optional[torch.Tensor] = None,
+            remat: bool = False):
+    """Train/eval forward: full-sequence logits (B, S, V) + aux loss.
+    ``remat``: recompute each layer block in the backward pass."""
     s = tokens.shape[1]
     dev = params["embed"].device
     if positions is None:
         positions = _positions(0, s, dev)
     x = embed(params, tokens, cfg)
-    x, _, aux = _backbone(params, x, cfg, positions=positions)
+    x, _, aux = _backbone(params, x, cfg, positions=positions, remat=remat)
     return unembed(params, x, cfg), aux
 
 

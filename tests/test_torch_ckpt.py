@@ -6,6 +6,14 @@ in numpy, then the two cross-reads: a checkpoint written by one package
 restores through the other's ``restore_checkpoint`` (a list of numpy
 arrays as ``like_tree``) with equal arrays and ``extra``.  The port keeps
 the reference's on-disk layout, and loads without ``jax``.
+
+Then training states: ``NamedTuple``s rebuilt by their fields; bfloat16
+leaves written as the reference writes them (``'<V2'``, dtype name
+``"bfloat16"``, the same file bytes) and read back bit for bit; a
+``TrainState`` of the reference's (f32 and bf16, after a step, with the
+compressor's residual) restored by the port onto tensors, and the port's
+f32 one restored by the reference; a restore onto a device from a tree of
+``meta`` tensors.  Every comparison is exact.
 """
 import json
 import os
@@ -15,6 +23,10 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
 
 from repro.ckpt import checkpoint as RC
 from repro_torch.ckpt.checkpoint import (latest_step, restore_checkpoint,
@@ -220,3 +232,156 @@ def test_ckpt_loads_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+# -- training states ----------------------------------------------------------
+
+def _bits(t):
+    """A leaf's bytes as integers (bfloat16 through its 16-bit pattern)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+                ).numpy()
+    a = np.asarray(t)
+    return a.view(np.int16) if a.dtype == ml_dtypes.bfloat16 else a
+
+
+def _same(got, want):
+    from repro_torch.tree import leaves
+    g, w = leaves(got), jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert tuple(a.shape) == tuple(np.shape(b))
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_namedtuple_train_state_roundtrip(tmp_path):
+    from repro_torch.train.compress import CompressorState
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.tree import leaves, tree_map
+
+    def tree(draw):
+        return {"w": draw(3, 2), "layers": [{"b": draw(4)}]}
+
+    st = TrainState(tree(torch.randn), OptState(
+        tree(torch.randn), tree(torch.rand),
+        torch.tensor(5, dtype=torch.int32)),
+        CompressorState(tree(torch.randn)), torch.tensor(7, dtype=torch.int32))
+    save_checkpoint(str(tmp_path), 7, st)
+    out, step, _ = restore_checkpoint(str(tmp_path),
+                                      tree_map(torch.zeros_like, st))
+    assert step == 7 and isinstance(out, TrainState)
+    assert isinstance(out.opt, OptState)
+    assert isinstance(out.comp, CompressorState)
+    assert isinstance(out.params["layers"], list)
+    for a, b in zip(leaves(out), leaves(st)):
+        assert isinstance(a, torch.Tensor) and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _bf16_values():
+    x = torch.tensor([0.0, -0.0, 1.0, -2.5, 3.14159, 1e-40, -1e-38, 65504.0,
+                      3e38, float("inf"), -float("inf")]).bfloat16()
+    return torch.cat([x, torch.randn(37).bfloat16()])
+
+
+def test_bf16_roundtrip_bit_for_bit(tmp_path):
+    x = _bf16_values().reshape(4, 12)
+    tree = {"x": x, "y": torch.ones(3)}
+    path = save_checkpoint(str(tmp_path / "p"), 1, tree)
+    with open(os.path.join(path, "manifest.json")) as f:
+        meta = json.load(f)["leaves"]
+    assert [m["dtype"] for m in meta] == ["bfloat16", "float32"]
+    out, _, _ = restore_checkpoint(str(tmp_path / "p"), {
+        "x": torch.zeros(4, 12, dtype=torch.bfloat16), "y": torch.zeros(3)})
+    assert out["x"].dtype == torch.bfloat16
+    assert torch.equal(out["x"].view(torch.int16), x.view(torch.int16))
+    # into a numpy float32 like leaf: the exact widening
+    out, _, _ = restore_checkpoint(str(tmp_path / "p"), {
+        "x": np.zeros((4, 12), np.float32), "y": np.zeros(3, np.float32)})
+    np.testing.assert_array_equal(out["x"], x.float().numpy())
+    # the reference writes the same file for the same values
+    ref = x.float().numpy().astype(ml_dtypes.bfloat16)
+    rpath = RC.save_checkpoint(str(tmp_path / "r"), 1, {
+        "x": jnp.asarray(ref), "y": jnp.ones(3)})
+    with open(os.path.join(rpath, "manifest.json")) as f:
+        assert json.load(f)["leaves"] == meta
+    for name in ("arr_00000.npy", "arr_00001.npy"):
+        with open(os.path.join(path, name), "rb") as a, \
+                open(os.path.join(rpath, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def _states(dtype):
+    """A reference ``TrainState`` after one jitted step (with the
+    compressor) and the port's like tree of the same structure."""
+    import dataclasses
+    from repro.configs import get_config as rget
+    from repro.configs import reduced as rred
+    from repro.train import optimizer as RO
+    from repro.train import train_step as RT
+    from repro.train.compress import DisketchCompressor as RComp
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import convert
+    from repro_torch.models import model as PM
+    from repro_torch.train.compress import DisketchCompressor as PComp
+    from repro_torch.train.train_step import init_train_state
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), n_layers=2)
+    rcfg = dataclasses.replace(rred(rget("gemma2-2b")), n_layers=2)
+    params = PM.init_params(np.random.default_rng(0), cfg, dtype=dtype,
+                            device="cpu")
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    rparams = jax.tree.map(lambda a: jnp.asarray(np.array(a), jd),
+                           convert.to_numpy(params))
+    rc = RComp(width=1024, n_sub=2, k_frac=0.05)
+    rst = RT.init_train_state(rparams, rc)
+    step = jax.jit(RT.make_train_step(rcfg, RO.cosine_schedule(1e-3, 0, 4),
+                                      compressor=rc, sp=False))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16))
+    rst, _ = step(rst, {"tokens": jnp.asarray(toks, jnp.int32),
+                        "labels": jnp.asarray(toks, jnp.int32)})
+    return rst, init_train_state(params, PComp(width=1024, n_sub=2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_port_restores_reference_train_state(tmp_path, dtype):
+    from repro_torch.train.train_step import TrainState
+    rst, like = _states(dtype)
+    RC.save_checkpoint(str(tmp_path), 1, rst)
+    out, step, _ = restore_checkpoint(str(tmp_path), like)
+    assert step == 1 and isinstance(out, TrainState)
+    assert out.params["embed"].dtype == dtype
+    assert out.opt.m["embed"].dtype == torch.float32
+    assert int(out.step) == int(out.opt.step) == 1
+    _same(out, rst)
+
+
+def test_reference_restores_port_train_state(tmp_path):
+    rst, _ = _states(torch.float32)
+    port = restore_checkpoint(str(tmp_path / "none"), rst)
+    assert port == (None, None, None)
+    # the port's state (restored from the reference's, then saved again)
+    RC.save_checkpoint(str(tmp_path / "r"), 1, rst)
+    _, like = _states(torch.float32)
+    state, _, _ = restore_checkpoint(str(tmp_path / "r"), like)
+    save_checkpoint(str(tmp_path / "p"), 2, state)
+    zeros = jax.tree.map(jnp.zeros_like, rst)
+    out, step, _ = RC.restore_checkpoint(str(tmp_path / "p"), zeros)
+    assert step == 2 and type(out).__name__ == "TrainState"
+    _same(state, out)
+
+
+def test_restore_onto_a_device_from_meta_tensors(tmp_path):
+    from repro_torch.tree import leaves, tree_map
+    tree = {"a": torch.randn(5, 3), "b": [torch.arange(4, dtype=torch.int32),
+                                          _bf16_values()]}
+    save_checkpoint(str(tmp_path), 3, tree)
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+    out, step, _ = restore_checkpoint(str(tmp_path), like, device="cpu")
+    assert step == 3
+    for a, b in zip(leaves(out), leaves(tree)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        np.testing.assert_array_equal(_bits(a), _bits(b))
