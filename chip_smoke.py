@@ -77,7 +77,14 @@ full-scale setting:
   gemma2-2b at full width and depth in bf16 (f32 AdamW moments) for ten
   steps at the reference launcher's defaults, three steps with the
   compressor (D = 3 204 165 888), and a run killed after its step-2
-  checkpoint and restarted from it to the uninterrupted run's loss.
+  checkpoint and restarted from it to the uninterrupted run's loss;
+* model sharding (``repro_torch.models.sharding``, ``launch/shardings.py``,
+  ``launch/dryrun.py``; DTensor, no kernel of its own): the spec tables
+  of every arch on both production meshes held to the reference's
+  (``SHARDING_PIN``); gemma2-2b at full width on a world-size-1 NCCL
+  group and a (1, 1) mesh of this card, serving and a train step held to
+  the unsharded runs; and the dry-run of four gemma2-2b cells, rank 0 of
+  a fake group of 256 or 512 ranks running its shards on this card.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and the script checks that it went through its
@@ -86,8 +93,9 @@ that the answers are right: the RMSEs and entropies are pinned to the JAX
 reference's values at this setting, and so are the control plane's
 applied configs, stale epochs and protocol counters, the export
 plane's protocol counters and crash report, the chaos harness's
-report, crash log and n trajectory, the serving path's logits and the
-training path's losses, grad norms and updated weights.
+report, crash log and n trajectory, the serving path's logits, the
+training path's losses, grad norms and updated weights, and the spec
+tables' digests.
 
 It imports nothing of JAX or of the JAX package.  It exits non-zero, and
 prints no result, when CUDA is unavailable or the port's sources are
@@ -419,6 +427,49 @@ TRAIN_PIN_RTOL = 1e-5
 # m's limit lies between the f32 steps' reading on an H100 (1.18e-5) and
 # the TF32 control's (1.04e-3).
 TRAIN_PIN_M_RTOL = 1e-4
+# The sharding phase: (a) the port's spec tables of every arch on both
+# production meshes (launch/shardings.py::spec_tables) held to
+# SHARDING_PIN, the reference's own tables' digests (scripts/
+# reference_pins.py sharding, from AbstractMesh); (b) full-width gemma2-2b
+# on a world-size-1 NCCL group and a (1, 1) ("data", "model") mesh of the
+# card, sharded against unsharded from the same weights: a prefill of
+# SHARD_SERVE (f32, FSDP off) and SHARD_DECODE greedy decode steps (the
+# tokens equal, the logits within the serve phase's 2e-4), one bf16
+# train step at SHARD_TRAIN (remat, sp, FSDP on; loss and grad norm
+# SHARD_TRAIN_RTOL, the parameters by the train phase's rule); (c) the
+# dry-run (launch/dryrun.py::run_cell) of SHARD_CELLS on the card, each
+# cell's useful_flops_frac inside the band PERF.md predicted from a
+# --device meta run before the first chip call.
+SHARDING_PIN = {
+    "codeqwen1.5-7b single": "cc2e14a220dbfee8",
+    "codeqwen1.5-7b multi": "50c15afc577a9291",
+    "deepseek-moe-16b single": "124838248af0b6d9",
+    "deepseek-moe-16b multi": "0b4bf3a2b71a0d4e",
+    "falcon-mamba-7b single": "03dad54dac8aeb82",
+    "falcon-mamba-7b multi": "4f80afbed1fb84c7",
+    "gemma2-2b single": "2cdb8888d32e8021",
+    "gemma2-2b multi": "23b953c881c071c7",
+    "granite-8b single": "5813714c27e09df0",
+    "granite-8b multi": "7d107ecaf44b6170",
+    "internvl2-76b single": "8cad8352cdcd8b06",
+    "internvl2-76b multi": "6d882b2dad939d7a",
+    "minicpm-2b single": "b4d43a2fe0dfd6a9",
+    "minicpm-2b multi": "7802efd7e5debba4",
+    "musicgen-medium single": "06b794d8e7223407",
+    "musicgen-medium multi": "5bbf82412249b246",
+    "olmoe-1b-7b single": "24bbe48949d63cfd",
+    "olmoe-1b-7b multi": "50dffccac0741b07",
+    "zamba2-2.7b single": "5ea4b8cdc4aab6a2",
+    "zamba2-2.7b multi": "8bbc52445ab446a9"}
+SHARD_SERVE, SHARD_DECODE = (4, 32), 8
+SHARD_TRAIN = (8, 512)
+SHARD_TRAIN_RTOL = 1e-5
+# (shape, mesh) -> the useful_flops_frac band predicted in PERF.md
+SHARD_CELLS = {("train_4k", "single"): (0.90, 0.96),
+               ("prefill_32k", "single"): (0.50, 0.55),
+               ("decode_32k", "single"): (0.05, 0.06),
+               ("train_4k", "multi"): (0.90, 0.96)}
+HBM_CARD = 80e9
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
 # 32-bit operations/s (the kernel's hashing is uint32 integer work).
 HBM_BYTES_PER_S = 3.35e12
@@ -3647,6 +3698,278 @@ def train_phase(dev, served):
     return res
 
 
+def _sharding_pin():
+    """(a) The port's spec tables of every arch on both production meshes
+    against the reference's digests."""
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.launch import abstract_production_mesh
+    from repro_torch.launch import shardings as SH
+
+    got = {}
+    for arch in list_configs():
+        for mk in ("single", "multi"):
+            got[f"{arch} {mk}"] = json_digest(SH.spec_tables(
+                get_config(arch),
+                abstract_production_mesh(multi_pod=mk == "multi")))
+    bad = {k: (v, SHARDING_PIN.get(k)) for k, v in got.items()
+           if v != SHARDING_PIN.get(k)}
+    if bad or set(got) != set(SHARDING_PIN):
+        raise AssertionError(f"sharding: spec tables differ from the "
+                             f"reference's: {bad}")
+    _log(f"sharding SHARDING_PIN held: {len(got)} tables (10 archs x "
+         f"single and multi pod) equal the reference's digests")
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _sharded_serve(dev, cfg, mesh):
+    """(b) serve: a prefill of SHARD_SERVE and SHARD_DECODE greedy decode
+    steps, unsharded and then sharded, from the same f32 weights."""
+    import torch
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as PM
+    from repro_torch.models.sharding import sharding_env
+
+    b, s = SHARD_SERVE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = PM.init_params(gen, cfg, dtype=torch.float32, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+    def run(p, specs=None):
+        st = PM.init_decode_state(p, cfg, b, s + SHARD_DECODE,
+                                  dtype=torch.float32, specs=specs)
+        logits, st = PM.prefill(p, prompt, cfg, st)
+        outs, toks = [logits[:, -1]], []
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        for _ in range(SHARD_DECODE):
+            toks.append(tok)
+            logits, st = PM.decode_step(p, tok, cfg, st)
+            outs.append(logits)
+            tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        return outs, toks
+
+    with torch.no_grad():
+        run(params)                                      # warm
+        (want, want_t), ms_u = _timed(lambda: run(params))
+        dp = SH.place(params, SH.param_specs(params, cfg, mesh, fsdp=False),
+                      mesh)
+        specs = SH.decode_state_specs(cfg, b, mesh)
+        with sharding_env(mesh):
+            run(dp, specs)
+            (got, got_t), ms_s = _timed(lambda: run(dp, specs))
+    got = [g.full_tensor() for g in got]
+    got_t = [t.full_tensor() for t in got_t]
+    if not all(torch.equal(g, w) for g, w in zip(got_t, want_t)):
+        raise AssertionError("sharding serve: greedy tokens differ")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not err <= 2e-4:
+        raise AssertionError(f"sharding serve: logits off by {err}")
+    _log(f"sharding serve (1, 1) mesh, {cfg.name} full width f32: prefill "
+         f"{b} x {s} + {SHARD_DECODE} decode steps; greedy tokens equal; "
+         f"logits max |diff| {err!r} (bit-equal: {equal}); {ms_s:.1f} ms "
+         f"sharded against {ms_u:.1f} ms unsharded")
+    return {"max_abs_err": err, "bit_equal": equal, "ms": ms_s,
+            "ms_unsharded": ms_u}
+
+
+def _sharded_train(dev, cfg, mesh):
+    """(b) train: one bf16 step at SHARD_TRAIN with remat, sp and FSDP,
+    unsharded and then sharded from the same state and batch."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as PM
+    from repro_torch.models.sharding import sharding_env
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+    from repro_torch.tree import leaves
+
+    b, s = SHARD_TRAIN
+    lr = 3e-4
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = PM.init_params(gen, cfg, dtype=torch.bfloat16, device=dev)
+    start = [p.clone() for p in leaves(params)]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticLM(cfg.vocab, s, b, seed=7).batch(0).items()}
+    step = make_train_step(cfg, cosine_schedule(lr, 0, 10), remat=True,
+                           sp=True)
+    state = init_train_state(params)
+    (state, m_u), ms_u = _timed(lambda: step(state, batch))
+    want = leaves(state.params)
+    del state
+    torch.cuda.empty_cache()
+    from repro_torch.tree import flatten
+    treedef = flatten(params)[1]
+    p0 = treedef.unflatten(start)
+    del params
+    specs = SH.param_specs(p0, cfg, mesh, fsdp=True)
+    dp = SH.place(p0, specs, mesh)
+    db = SH.place(batch, SH.batch_specs_of(batch, mesh), mesh)
+    with sharding_env(mesh):
+        st = init_train_state(dp)
+        (st, m_s), ms_s = _timed(lambda: step(st, db))
+    for k in ("loss", "grad_norm"):
+        _pinned(f"sharding train {k}", float(m_s[k]), float(m_u[k]),
+                SHARD_TRAIN_RTOL)
+    got = [p.to_local() for p in leaves(st.params)]
+    top = max(float(w.float().abs().max()) for w in want)
+    off = n = 0
+    worst = 0.0
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        off += int((err > 1e-5 * top).sum())
+        n += err.numel()
+        worst = max(worst, float(err.max()))
+    if not (off <= 1e-4 * n and worst <= 2 * lr):
+        raise AssertionError(f"sharding train: {off} of {n} parameters off "
+                             f"by more than 1e-5 of the largest, worst "
+                             f"{worst}")
+    _log(f"sharding train (1, 1) mesh, {cfg.name} full width bf16 {b} x "
+         f"{s}, remat, sp, FSDP: loss {float(m_s['loss'])!r} against "
+         f"{float(m_u['loss'])!r}, grad norm {float(m_s['grad_norm'])!r} "
+         f"against {float(m_u['grad_norm'])!r}; parameters off by > 1e-5 "
+         f"of the largest: {off} of {n}, worst {worst!r}; {ms_s:.1f} ms "
+         f"sharded against {ms_u:.1f} ms unsharded (first step of each)")
+    del st, dp, want, got, p0, start
+    torch.cuda.empty_cache()
+    return {"loss": float(m_s["loss"]), "params_off": off, "ms": ms_s,
+            "ms_unsharded": ms_u}
+
+
+def _spec_bytes(tree, specs, sizes) -> int:
+    """Per-device bytes of ``tree`` (meta tensors) placed by ``specs``:
+    each leaf's bytes over the product of its spec's mesh axes."""
+    from repro_torch.tree import leaves
+
+    total = 0
+    for x, spec in zip(leaves(tree), leaves(specs)):
+        div = 1
+        for e in spec:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                div *= sizes[a]
+        total += x.numel() * x.element_size() // div
+    return total
+
+
+def _cell_arg_bytes(arch, shape_name, mesh_kind) -> int:
+    """A cell's per-device argument bytes from the spec tables alone."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import abstract_production_mesh, dryrun
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as PM
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh = abstract_production_mesh(multi_pod=mesh_kind == "multi")
+    sizes = mesh.shape
+    params = PM.init_params(None, cfg, device="meta")
+    pspecs = SH.param_specs(params, cfg, mesh, fsdp=shape.kind == "train")
+    batch = dryrun.input_specs(arch, shape_name)
+    total = _spec_bytes(params, pspecs, sizes) + _spec_bytes(
+        batch, SH.batch_specs_of(batch, mesh), sizes)
+    if shape.kind == "train":
+        f32 = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                             device="meta"), params)
+        total += 2 * _spec_bytes(f32, pspecs, sizes) + 2 * 4   # m, v, steps
+    elif shape.kind == "decode":
+        st = PM.init_decode_state(params, cfg, shape.global_batch,
+                                  shape.seq_len)
+        specs = SH.decode_state_specs(
+            cfg, shape.global_batch, mesh,
+            seq_shard=shape_name.startswith("long"))
+        total += _spec_bytes(st.caches, specs.caches, sizes)
+    return total
+
+
+def _dryrun_cells():
+    """(c) The dry-run of SHARD_CELLS on the card."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for (shape_name, mk), (lo, hi) in SHARD_CELLS.items():
+        rec = dryrun.run_cell(SERVE_ARCH, shape_name, mk)
+        if rec["status"] != "ok":
+            raise AssertionError(f"sharding dry-run {shape_name} {mk}: "
+                                 f"{rec['error']}\n{rec['traceback']}")
+        mem = rec["memory_analysis"]
+        want = _cell_arg_bytes(SERVE_ARCH, shape_name, mk)
+        frac = rec["useful_flops_frac"]
+        _log("sharding dryrun " + json.dumps(rec, default=str))
+        _log(f"sharding dryrun {SERVE_ARCH} {shape_name} {mk} "
+             f"{rec['mesh_shape']}: peak {mem['peak_bytes']} B, arguments "
+             f"{mem['argument_bytes']} B (spec tables {want} B), "
+             f"useful_flops_frac {frac!r} (band {lo} to {hi}), "
+             f"{rec['flops']!r} FLOP a device, collectives "
+             f"{rec['collective_bytes_total']} B, dominant "
+             f"{rec['dominant']}; built in {rec['build_s']:.1f} s, run "
+             f"{rec['run_s']:.1f} s")
+        if not mem["peak_bytes"] < HBM_CARD:
+            raise AssertionError(f"sharding dry-run {shape_name} {mk}: peak "
+                                 f"{mem['peak_bytes']} B")
+        if mem["argument_bytes"] != want:
+            raise AssertionError(f"sharding dry-run {shape_name} {mk}: "
+                                 f"{mem['argument_bytes']} argument bytes, "
+                                 f"the spec tables give {want}")
+        if not lo <= frac <= hi:
+            raise AssertionError(f"sharding dry-run {shape_name} {mk}: "
+                                 f"useful_flops_frac {frac} outside the "
+                                 f"predicted {lo} to {hi}")
+        out[f"{shape_name} {mk}"] = {
+            k: rec[k] for k in ("flops", "op_bytes", "collective_bytes",
+                                "collective_bytes_total", "compute_s",
+                                "memory_s", "collective_s", "dominant",
+                                "useful_flops_frac", "build_s", "run_s")}
+        out[f"{shape_name} {mk}"]["peak_bytes"] = mem["peak_bytes"]
+    return out
+
+
+def sharding_phase(dev):
+    """Model sharding: (a) SHARDING_PIN; (b) a world-size-1 NCCL group and
+    a (1, 1) mesh of the card, full-width gemma2-2b sharded against
+    unsharded (serve and train); (c) the dry-run's cells under a fake
+    group of 256 and 512 ranks.  Each group is destroyed before the next
+    starts.  No B1-B3 launch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_host_mesh, process_group
+
+    reset_counts()
+    res = {}
+    _sharding_pin()
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    with process_group("nccl"):
+        mesh = make_host_mesh("cuda")
+        res["serve"] = _sharded_serve(dev, cfg, mesh)
+        torch.cuda.empty_cache()
+        res["train"] = _sharded_train(dev, cfg, mesh)
+        del mesh
+    torch.cuda.empty_cache()
+    res["dryrun"] = _dryrun_cells()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"sharding launched sketch kernels: {counts}")
+    _log(json.dumps({"sharding": res}, default=str))
+    return res
+
+
 def _b2_rows(params, signed):
     """``ops._launch`` keywords of the B2 loop's launches, one per row of
     an epoch's parameter table."""
@@ -3929,6 +4252,8 @@ def main() -> int:
         sharded = _phase(sharded_phase, dev, sc)
         served = _phase(serve_phase, dev)
         _phase(train_phase, dev, served)
+        del served
+        _phase(sharding_phase, dev)
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [

@@ -9,7 +9,7 @@ device G-sum.
     PYTHONPATH=src python scripts/reference_pins.py [SECTION ...]
 
 SECTIONs: rho, aggregated, rmse_epoch, rmse_window, um_epoch, um_window,
-churn, control, export, chaos, serve, train (default: all).  Prints one ``name
+churn, control, export, chaos, serve, train, sharding (default: all).  Prints one ``name
 value`` line per result, then one JSON object.  All sections take a few minutes at this
 full-scale setting; ``churn`` alone took 31.8 s (wall) on an 8-core x86
 CPU, ``control`` under 45 s, ``export`` under 30 s, ``chaos`` under 60 s.
@@ -79,6 +79,7 @@ run after the reference's (one state at a time) and printed beside them.
 It peaks at about 27 GB of host memory (1.34 G parameters with their
 gradients and f32 moments) and needs no workload.
 """
+import functools
 import hashlib
 import json
 import sys
@@ -110,7 +111,7 @@ RHO = {"cs": 15.67, "cms": 1.0, "um": 63.31}
 N_LEVELS, LEVEL_SEED, ENTROPY_EPOCHS = 16, 7777, 8
 SECTIONS = ("rho", "aggregated", "rmse_epoch", "rmse_window", "um_epoch",
             "um_window", "churn", "control", "export", "chaos", "serve",
-            "train")
+            "train", "sharding")
 # the churn phase: the window that holds the deaths, and the parity groups
 CHURN_EPOCHS, PARITY_GROUP = range(16, 24), 5
 # the export phase: protocol rounds after each window dispatch, the
@@ -446,12 +447,94 @@ def path_groups(paths):
     return {p: np.asarray(i) for p, i in groups.items()}
 
 
+def _abstract_mesh(sizes, names):
+    """AbstractMesh across JAX versions (as tests/test_sharding_specs.py
+    builds it)."""
+    from jax.sharding import AbstractMesh
+    try:
+        return AbstractMesh(tuple(zip(names, sizes)))
+    except TypeError:
+        return AbstractMesh(tuple(sizes), tuple(names))
+
+
+SHARDING_MESHES = {"single": ((16, 16), ("data", "model")),
+                   "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@functools.lru_cache(maxsize=None)
+def reference_param_shapes(arch):
+    """``jax.eval_shape`` of the reference's bf16 parameters of ``arch``
+    (kept: every table of both meshes starts from it)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models import model as RM
+
+    return jax.eval_shape(lambda: RM.init_params(
+        jax.random.PRNGKey(0), get_config(arch), dtype=jnp.bfloat16))
+
+
+def reference_spec_tables(arch, mesh_kind):
+    """The reference's spec tables of ``arch`` on a production mesh, in
+    the form of the port's ``launch/shardings.py::spec_tables``: each leaf
+    ``[jax.tree_util.keystr(path), [entry, ...]]``."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import LONG_CONTEXT_OK, SHAPES, get_config
+    from repro.data.pipeline import batch_specs
+    from repro.launch import shardings as SH
+
+    mesh = _abstract_mesh(*SHARDING_MESHES[mesh_kind])
+    cfg = get_config(arch)
+
+    def canon(spec):
+        return [None if e is None else ([e] if isinstance(e, str)
+                                        else list(e)) for e in spec]
+
+    def rows(tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, P))
+        return [[jax.tree_util.keystr(p), canon(x)] for p, x in flat]
+
+    params = reference_param_shapes(arch)
+    pspecs = SH.param_specs(params, cfg, mesh, fsdp=True)
+    out = {"params fsdp": rows(pspecs),
+           "params": rows(SH.param_specs(params, cfg, mesh, fsdp=False)),
+           "opt": rows(SH.opt_state_specs(pspecs, mesh))}
+    for name in ("decode_32k", "long_500k"):
+        if name == "long_500k" and arch not in LONG_CONTEXT_OK:
+            continue
+        out[name] = rows(SH.decode_state_specs(
+            cfg, SHAPES[name].global_batch, mesh,
+            seq_shard=name == "long_500k"))
+    for name, shape in SHAPES.items():
+        batch = batch_specs(cfg, shape)
+        out[f"batch {name}"] = rows({k: SH.div_spec(
+            mesh, tuple(v.shape), P(SH.BATCH, *([None] * (len(v.shape) - 1))))
+            for k, v in batch.items()})
+    return out
+
+
+def sharding():
+    """SHARDING_PIN: a digest of every spec table of each arch on both
+    production meshes (AbstractMesh: no devices needed)."""
+    from repro.configs import list_configs
+
+    pin = {}
+    for arch in list_configs():
+        for mk in SHARDING_MESHES:
+            pin[f"{arch} {mk}"] = json_digest(reference_spec_tables(arch, mk))
+    save("sharding pin", pin)
+
+
 def main(sections):
     if "serve" in sections:
         serve()
     if "train" in sections:
         train()
-    if set(sections) <= {"serve", "train"}:
+    if "sharding" in sections:
+        sharding()
+    if set(sections) <= {"serve", "train", "sharding"}:
         print(json.dumps(out))
         return
     topo = FatTree(4)

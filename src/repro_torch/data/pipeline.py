@@ -154,3 +154,28 @@ def make_batch_iterator(cfg, shape, *, seed: int = 0, host_id: int = 0,
                                       host_id=host_id, n_hosts=n_hosts))
     return iter(SyntheticLM(cfg.vocab, shape.seq_len, bph, seed=seed,
                             host_id=host_id))
+
+
+def batch_specs(cfg, shape, dtype=None):
+    """Stand-ins for the global batch (dry-run inputs): ``meta`` tensors of
+    the batch's shapes and dtypes, where the reference returns
+    ``jax.ShapeDtypeStruct``s.
+
+    Frontend-stub archs (``cfg.embed_inputs``: InternViT patches / EnCodec
+    frames) receive precomputed (B, S, D) bf16 embeddings instead of token
+    ids, per the brief; labels stay token ids (the backbone's LM head).
+    ``dtype``: the ids' dtype (int32, as the reference's).
+    """
+    import torch
+
+    dtype = torch.int32 if dtype is None else dtype
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.embed_inputs:
+        tok = torch.empty((b, s, cfg.d_model), dtype=torch.bfloat16,
+                          device="meta")
+    else:
+        tok = torch.empty((b, s), dtype=dtype, device="meta")
+    if shape.kind == "train":
+        return {"tokens": tok,
+                "labels": torch.empty((b, s), dtype=dtype, device="meta")}
+    return {"tokens": tok}

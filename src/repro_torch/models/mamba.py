@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import normal
+from .sharding import BATCH_AXES, MODEL_AXIS, shard
 
 
 def _assoc_scan(a, u):
@@ -81,6 +82,7 @@ def mamba1_block(x, p, cfg, state: Optional[MambaState] = None,
     di, n, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank
     xz = x @ p["in_proj"]                                   # (B,S,2*di)
     xc, z = xz[..., :di], xz[..., di:]
+    xc = shard(xc, BATCH_AXES, None, MODEL_AXIS)
     conv_state = state.conv if state is not None else None
     xc, new_conv = _causal_conv(xc, p["conv_w"], conv_state)
     xc = F.silu(xc + p["conv_b"])
@@ -101,7 +103,7 @@ def mamba1_block(x, p, cfg, state: Optional[MambaState] = None,
     y = (y + xc.float() * p["d_skip"]).to(x.dtype)
     y = y * F.silu(z)
     out = y @ p["out_proj"]
-    return out, MambaState(new_conv, h_last)
+    return shard(out, BATCH_AXES, None, None), MambaState(new_conv, h_last)
 
 
 def init_mamba1(gen, cfg, dtype=torch.bfloat16, device="cpu"):
@@ -150,6 +152,7 @@ def mamba2_block(x, p, cfg, state: Optional[MambaState] = None,
     xc = zxbcdt[..., di:2 * di]
     bc = zxbcdt[..., 2 * di:2 * di + 2 * n]
     dt = F.softplus(zxbcdt[..., 2 * di + 2 * n:] + p["dt_bias"])
+    xc = shard(xc, BATCH_AXES, None, MODEL_AXIS)
 
     conv_state = state.conv if state is not None else None
     conv_in = torch.cat([xc, bc], dim=-1)
@@ -173,7 +176,7 @@ def mamba2_block(x, p, cfg, state: Optional[MambaState] = None,
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_gate(y, z, p["norm_w"])
     out = y @ p["out_proj"]
-    return out, MambaState(new_conv, h_last)
+    return shard(out, BATCH_AXES, None, None), MambaState(new_conv, h_last)
 
 
 def rms_gate(y, z, w, eps=1e-6):

@@ -25,15 +25,20 @@ reference's pytree layout and names (``layers.{i}.attn.wq`` …; see
 
 ``forward(..., remat=True)`` recomputes each layer block in the backward
 pass (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
-each block in ``jax.checkpoint``.  The reference's ``sp`` option (the
-residual stream sharded over a ``model`` mesh axis) has no counterpart:
-one model on one card has no mesh axis to shard over.
+each block in ``jax.checkpoint``.  ``forward(..., sp=True)`` is the
+reference's Megatron-style sequence parallelism: under a sharding env
+(``models/sharding.py``) the residual stream between blocks is sharded
+over the ``model`` axis on the sequence dim.  Parameters may be
+DTensors placed by ``launch/shardings.py``; with plain tensors and no env
+every path is the unsharded one.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 # ``checkpoint`` imports torch._dynamo at its first call.  It is imported
 # here instead: that import leaves a reference cycle through a frame of
@@ -45,6 +50,8 @@ from ..device import resolve_device
 from . import layers as L
 from . import mamba as M
 from . import moe as X
+from .sharding import BATCH_AXES, MODEL_AXIS, from_shard, shard
+from .sharding import zeros as sharded_zeros
 
 
 class DecodeState(NamedTuple):
@@ -150,22 +157,32 @@ def _attn_mlp_block(x, lp, cfg, *, positions, window, kv_cache, cache_len,
     if gemma2:
         a = L.rms_norm(a, lp["post_ln1"], cfg.eps)
     x = x + a
-    h = L.rms_norm(x, lp["ln2"], cfg.eps)
+    # (sp: the sequence is gathered at the FFN's first projection)
+    h = shard(L.rms_norm(x, lp["ln2"], cfg.eps), BATCH_AXES, None, None)
     aux = None
     if moe:
         f, aux = X.moe_ffn(h, lp["moe"], cfg)
     else:
-        f = L.swiglu(h, lp["mlp"])
+        # the row-parallel sum taken here, as GSPMD takes it: with sp a
+        # pending sum would reach the backward's weight-gradient matmuls
+        # sequence-sharded, a layout DTensor plans very slowly
+        f = shard(L.swiglu(h, lp["mlp"]), BATCH_AXES, None, None)
     if gemma2:
         f = L.rms_norm(f, lp["post_ln2"], cfg.eps)
     return x + f, new_cache, aux
 
 
 def _backbone(params, x, cfg, *, positions, caches=None, cache_len=None,
-              remat: bool = False):
+              remat: bool = False, sp: bool = False):
     """Run the layer stack.  caches: per-layer decode caches (or None).
     ``remat``: recompute each block in the backward pass (train/eval
     forward only, as in the reference).
+
+    ``sp``: Megatron-style sequence parallelism — the inter-block residual
+    stream is sharded over the *model* axis on the sequence dim, so saved
+    activations cost (B·S·D)/(dp·tp) per layer instead of (B·S·D)/dp.
+    The redistributions gather it at each block's first projection and
+    scatter it after its last.
 
     Returns (hidden, new_caches, total_aux_loss).
     """
@@ -180,16 +197,30 @@ def _backbone(params, x, cfg, *, positions, caches=None, cache_len=None,
             return checkpoint(fn, *args, use_reentrant=False, **kw)
         return fn(*args, **kw)
 
+    def sp_shard(t):
+        # Without sp the residual is laid out batch-sharded and replicated
+        # at each block boundary: DTensor would otherwise carry the row-
+        # parallel matmuls' pending sums on into the next block, where
+        # GSPMD sums them at once.  (A no-op without an env.)
+        if sp:
+            return shard(t, BATCH_AXES, MODEL_AXIS, None)
+        return shard(t, BATCH_AXES, None, None)
+
+    def attn_layer(xi, lpi, **kw):
+        xi, nc, aux = _attn_mlp_block(xi, lpi, cfg, **kw)
+        return sp_shard(xi), nc, aux
+
     def attn_block(xi, lpi, *, window, moe, cache):
-        return block(_attn_mlp_block, xi, lpi, cfg, positions=positions,
+        return block(attn_layer, xi, lpi, positions=positions,
                      window=window, kv_cache=cache, cache_len=cache_len,
                      gemma2=gemma2, moe=moe)
 
     def mamba_layer(xi, lpi, *, v2, cache):
-        h = L.rms_norm(xi, lpi["ln1"], cfg.eps)
+        h = shard(L.rms_norm(xi, lpi["ln1"], cfg.eps), BATCH_AXES, None,
+                  None)
         fn = M.mamba2_block if v2 else M.mamba1_block
         y, st = fn(h, lpi["mamba"], cfg, state=cache)
-        return xi + y, st
+        return sp_shard(xi + y), st
 
     def mamba_block(xi, lpi, *, v2, cache):
         return block(mamba_layer, xi, lpi, v2=v2, cache=cache)
@@ -228,18 +259,63 @@ def embed(params, tokens, cfg):
     """tokens: (B, S) integer ids, or (B, S, D) precomputed embeddings."""
     table = params["embed"]
     if cfg.embed_inputs and tokens.ndim == 3:
-        return tokens.to(table.dtype)
-    x = table[tokens]
-    if cfg.name.startswith("gemma2"):
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return x
+        x = tokens.to(table.dtype)
+    else:
+        x = _lookup(table, tokens) if isinstance(table, DTensor) \
+            else table[tokens]
+        if cfg.name.startswith("gemma2"):
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return shard(x, BATCH_AXES, None, None)
+
+
+def _lookup(table, tokens):
+    """``table[tokens]`` for a DTensor table: its FSDP shards gathered,
+    each rank looks up the ids in its own vocab slice ("model"; the others
+    give zero rows) for its own batch rows, and the rows' pending sum over
+    "model" is left to ``shard``.  Every op stays on the rank's shard, in
+    the backward too (DTensor's own masked lookup cannot take the
+    backward's pending sum)."""
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    nb = 1
+    for j, a in enumerate(names):
+        if a in BATCH_AXES:
+            nb *= mesh.size(j)
+    b_ok = tokens.shape[0] % nb == 0
+    split = [j for j, pl in enumerate(table.placements)
+             if isinstance(pl, Shard) and pl.dim == 0 and names[j]
+             not in BATCH_AXES]
+    want_t = [Shard(0) if j in split else Replicate()
+              for j in range(len(names))]
+    grad_t = [Shard(0) if j in split else
+              (Partial() if b_ok and a in BATCH_AXES else Replicate())
+              for j, a in enumerate(names)]
+    rows_pl = [Shard(0) if b_ok and a in BATCH_AXES else Replicate()
+               for a in names]
+    tl = table.redistribute(mesh, want_t).to_local(grad_placements=grad_t)
+    tok = tokens.redistribute(mesh, rows_pl) if isinstance(
+        tokens, DTensor) else distribute_tensor(tokens, mesh, rows_pl,
+                                                src_data_rank=None)
+    tok = tok.to_local()
+    n, off = tl.shape[0], 0
+    coord = mesh.get_coordinate()
+    for j in split:
+        off += coord[j] * n
+    idx = tok.long() - off
+    mine = (idx >= 0) & (idx < n)
+    rows = tl[idx.clamp(0, n - 1)] * mine[..., None].to(tl.dtype)
+    out = [Partial() if j in split else pl for j, pl in enumerate(rows_pl)]
+    return from_shard(rows, tuple(tokens.shape) + (table.shape[1],), out,
+                      mesh)
 
 
 def unembed(params, x, cfg):
     """Final norm + LM head, f32 logits (B, S, V)."""
-    x = L.rms_norm(x, params["final_norm"], cfg.eps)
-    logits = x.float() @ params["lm_head"].float()
-    return L.softcap(logits, cfg.final_softcap)
+    x = shard(L.rms_norm(x, params["final_norm"], cfg.eps), BATCH_AXES, None,
+              None)
+    logits = L.matmul("bsd,dv->bsv", x.float(), params["lm_head"].float())
+    logits = L.softcap(logits, cfg.final_softcap)
+    return shard(logits, BATCH_AXES, None, MODEL_AXIS)
 
 
 def _positions(start: int, s: int, device) -> torch.Tensor:
@@ -247,39 +323,57 @@ def _positions(start: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params, tokens, cfg, *, positions: Optional[torch.Tensor] = None,
-            remat: bool = False):
+            remat: bool = False, sp: bool = False):
     """Train/eval forward: full-sequence logits (B, S, V) + aux loss.
-    ``remat``: recompute each layer block in the backward pass."""
+    ``remat``: recompute each layer block in the backward pass; ``sp``:
+    sequence-parallel residuals (a no-op without a sharding env)."""
     s = tokens.shape[1]
     dev = params["embed"].device
     if positions is None:
         positions = _positions(0, s, dev)
     x = embed(params, tokens, cfg)
-    x, _, aux = _backbone(params, x, cfg, positions=positions, remat=remat)
+    x, _, aux = _backbone(params, x, cfg, positions=positions, remat=remat,
+                          sp=sp)
     return unembed(params, x, cfg), aux
 
 
 def init_decode_state(params, cfg, batch: int, max_len: int,
-                      dtype=torch.bfloat16) -> DecodeState:
+                      dtype=torch.bfloat16, specs=None) -> DecodeState:
     """Allocate decode caches on the parameters' device: KV (B, T, KV, dh)
-    / MambaState per layer."""
+    / MambaState per layer.  ``specs``: a spec tree of the state's
+    structure (``launch/shardings.py::decode_state_specs``); under a
+    sharding env each cache is then a DTensor placed by it, of which only
+    this rank's shard is allocated."""
     dev = params["embed"].device
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    spec_caches = specs.caches if specs is not None else None
 
-    def kv():
-        return (torch.zeros(shape, dtype=dtype, device=dev),
-                torch.zeros(shape, dtype=dtype, device=dev))
+    def spec(i, *path):
+        s = spec_caches[i] if spec_caches is not None else None
+        for k in path:
+            s = s[k] if s is not None else None
+        return s
+
+    def kv(i, *path):
+        return (sharded_zeros(shape, spec(i, *path, 0), dtype, dev),
+                sharded_zeros(shape, spec(i, *path, 1), dtype, dev))
+
+    def mamba(i, init, *path):
+        st = init(cfg, batch, dtype, "meta")
+        return M.MambaState(*(
+            sharded_zeros(t.shape, spec(i, *path, j), t.dtype, dev)
+            for j, t in enumerate(st)))
 
     caches = []
-    for kind in layer_kinds(cfg):
+    for i, kind in enumerate(layer_kinds(cfg)):
         if kind in ("attn", "moe_attn"):
-            caches.append(kv())
+            caches.append(kv(i))
         elif kind == "mamba1":
-            caches.append(M.mamba1_init_state(cfg, batch, dtype, dev))
+            caches.append(mamba(i, M.mamba1_init_state))
         elif kind == "mamba2+shared":
-            caches.append((M.mamba2_init_state(cfg, batch, dtype, dev), kv()))
+            caches.append((mamba(i, M.mamba2_init_state, 0), kv(i, 1)))
         else:
-            caches.append(M.mamba2_init_state(cfg, batch, dtype, dev))
+            caches.append(mamba(i, M.mamba2_init_state))
     return DecodeState(tuple(caches), 0)
 
 

@@ -7,7 +7,9 @@ reference, ``make_prefill_step`` allocates its caches in the default
 (bfloat16) dtype; the server (``launch/serve.py``) allocates f32 caches.
 
 Greedy ties: ``torch.argmax`` returns the first maximal index, as
-``jnp.argmax`` does.
+``jnp.argmax`` does.  Under a sharding env the steps take DTensor
+parameters and a state placed by ``decode_state_specs``; the caches are
+written in place and keep their placements.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ def sample_greedy(logits):
     return torch.argmax(logits, dim=-1)
 
 
-def make_prefill_step(cfg, max_len: Optional[int] = None):
+def make_prefill_step(cfg, max_len: Optional[int] = None, specs=None):
     """(params, tokens) -> (logits, DecodeState).  tokens: (B, S) or
-    (B, S, D) for embed-input archs."""
+    (B, S, D) for embed-input archs.  ``specs``: the state's spec tree
+    (``launch/shardings.py::decode_state_specs``), under a sharding env
+    the caches' placements (the reference's ``out_shardings``)."""
 
     def prefill_step(params, tokens):
         b, s = tokens.shape[:2]
-        state = MDL.init_decode_state(params, cfg, b, max_len or s)
+        state = MDL.init_decode_state(params, cfg, b, max_len or s,
+                                      specs=specs)
         return MDL.prefill(params, tokens, cfg, state)
 
     return prefill_step

@@ -43,15 +43,22 @@ is exactly the k-th largest ``|est|`` over all D coordinates (inactive
 ones count as 0) and ``|est| >= thresh`` keeps ties, so more than k may
 be kept.  Nothing is read back to the host.
 
-The reference's ``axis_names`` (a ``psum`` of the sketch over the
-data-parallel mesh axes) has no counterpart on one card: a non-None value
-is refused.
+Data parallelism (``axis_names``): under a sharding env
+(``models.sharding.sharding_env``) whose mesh has the named axes, each
+rank passes its own (rank-local) gradients, and the ``(depth, width)``
+sketch is summed over the ranks of those mesh dims before the estimates,
+as the reference's ``psum`` does inside ``shard_map``: every rank then
+recovers the same top-k of the summed sketch.  Without an env, or
+without those axes in it, ``axis_names`` does nothing, as the
+reference's ``psum`` over absent names would not be traced.
 """
 from __future__ import annotations
 
 from typing import Any, Iterator, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.hashing import hash_u32_torch
 from ..tree import chunks, flatten, tree_map
@@ -80,18 +87,14 @@ class DisketchCompressor:
                 FetchSGD.  Coordinate j participates at steps where
                 ``step % n_sub == hash(j) % n_sub``.
     k_frac:     fraction of coordinates recovered per step (top-k).
-    axis_names: must be None (one card, no data-parallel axis).
+    axis_names: data-parallel mesh axes to sum the sketch over (each rank
+                passes its own gradients), or None.
     """
 
     def __init__(self, width: int = 1 << 18, depth: int = 4,
                  n_sub: int = 1, k_frac: float = 0.01,
                  axis_names=None, seed: int = 0):
         assert n_sub & (n_sub - 1) == 0, "n_sub must be a power of two"
-        if axis_names is not None:
-            raise ValueError(
-                f"axis_names={axis_names!r}: the sketch's all-reduce over "
-                f"data-parallel mesh axes has no counterpart on one card; "
-                f"pass None")
         self.width = width
         self.depth = depth
         self.n_sub = n_sub
@@ -225,6 +228,21 @@ class DisketchCompressor:
         above = torch.cat([cum, cum.new_zeros(1)])[b + 1]
         return b, k - above
 
+    def _sum_over_axes(self, sk) -> None:
+        """Sum the sketch in place over the ranks of the ``axis_names``
+        mesh dims of the active env (one all-reduce a dim)."""
+        if not self.axis_names:
+            return
+        from ..models.sharding import active_axes, active_mesh
+
+        mesh = active_mesh()
+        names = [a for a in self.axis_names if a in active_axes()]
+        if mesh is None or not names:
+            return
+        for a in names:
+            if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+                dist.all_reduce(sk, group=mesh.get_group(a))
+
     @torch.no_grad()
     def apply(self, grads, state: CompressorState, step):
         """grads -> (compressed-and-recovered grads, new state).  The
@@ -234,6 +252,11 @@ class DisketchCompressor:
         tensors: the threshold being the exact k-th largest, ``kept >= k``
         and ``kept - tied < k``."""
         flat_g, treedef = flatten(grads)
+        if any(isinstance(g, DTensor) for g in flat_g):
+            raise TypeError("the compressor takes each rank's own "
+                            "(data-parallel) gradients as plain tensors, "
+                            "not DTensors; name the data axes in "
+                            "axis_names")
         flat_g = [g if g.is_contiguous() else g.contiguous() for g in flat_g]
         resid = flatten(state.residual)[0]
         dev = flat_g[0].device
@@ -244,6 +267,7 @@ class DisketchCompressor:
                          device=dev)
         for acc, idx, active, _ in self._passes(flat_g, resid, cur):
             self.sketch(acc, idx, active, out=sk)
+        self._sum_over_axes(sk)
         thresh = self.kth_largest(
             k, lambda: self._magnitudes(sk, flat_g, resid, cur))
 

@@ -15,6 +15,14 @@ nothing is read back to the host.
 
 ``wsd_schedule`` is the Warmup-Stable-Decay schedule of MiniCPM
 [arXiv:2404.06395] — one of the assigned architectures trains with it.
+
+DTensor parameters (``launch/shardings.py``): the moments take the
+parameters' placements (``opt_state_specs``), and, the update being
+elementwise, it runs on each rank's local shards, which are plain
+tensors the chunked views may cut (a view across a sharded dim of the
+DTensor itself is not allowed).  The global gradient norm is a DTensor
+reduction, so every shard's squares are summed once however the leaf is
+placed, and comes back replicated.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import chunks, flatten, tree_map
 
@@ -35,22 +44,39 @@ class OptState(NamedTuple):
     step: torch.Tensor
 
 
+def _zeros32(p):
+    """f32 zeros of ``p``'s shape (and placements, for a DTensor)."""
+    if _is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    """A DTensor's shard on this rank (a plain tensor unchanged)."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def adamw_init(params) -> OptState:
     leaves = flatten(params)[0]
     dev = leaves[0].device
     return OptState(
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params),
+        m=tree_map(_zeros32, params),
+        v=tree_map(_zeros32, params),
         step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def global_norm(grads) -> torch.Tensor:
-    """``sqrt(sum over leaves of sum(g.f32 ** 2))``, summed in leaf order."""
+    """``sqrt(sum over leaves of sum(g.f32 ** 2))``, summed in leaf order
+    (plain and replicated for DTensor gradients)."""
     total = None
     for g in flatten(grads)[0]:
         s = torch.sum(torch.square(g.float()))
+        if _is_dtensor(s):
+            s = s.full_tensor()
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -64,17 +90,19 @@ def adamw_update(params, grads, state: OptState, *, lr,
     ``(params, OptState, grad_norm)``.  ``lr`` may be a device scalar."""
     gnorm = global_norm(grads)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    step = state.step + 1
+    step = _local(state.step) + 1
+    lr = _local(lr) if torch.is_tensor(lr) else lr
     t = step.float()
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                        device=t.device), t)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=t.device), t)
 
-    flat_p, treedef = flatten(params)
-    flat_g = flatten(grads)[0]
-    flat_m = flatten(state.m)[0]
-    flat_v = flatten(state.v)[0]
+    tree_p, treedef = flatten(params)
+    flat_p = [_local(x) for x in tree_p]
+    flat_g = [_local(x) for x in flatten(grads)[0]]
+    flat_m = [_local(x) for x in flatten(state.m)[0]]
+    flat_v = [_local(x) for x in flatten(state.v)[0]]
     for pieces in chunks([p.numel() for p in flat_p], GROUP):
         p, m, v, g = ([t[i].view(-1)[lo:hi] for i, lo, hi in pieces]
                       for t in (flat_p, flat_m, flat_v, flat_g))
@@ -102,7 +130,7 @@ def adamw_update(params, grads, state: OptState, *, lr,
         new = torch._foreach_sub(pf, delta)
         del pf, delta
         torch._foreach_copy_(p, new)
-    return treedef.unflatten(flat_p), OptState(state.m, state.v, step), gnorm
+    return treedef.unflatten(tree_p), OptState(state.m, state.v, step), gnorm
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,

@@ -17,14 +17,26 @@ device scalar back to the host; AdamW and the compressor update the state's
 tensors in place.
 
 Loss is computed in float32 (the logits are f32).  Labels < 0 are masked.
+
+Sharded (the parameters DTensors placed by ``launch/shardings.py``, under
+``models.sharding.sharding_env``): tokens and labels are constrained to
+the batch axes, each gradient is brought to its parameter's placements,
+and the metrics come back as plain replicated tensors.  The logits stay
+vocab-sharded through the loss: its log-sum-exp reduces the local max
+and sum of exponentials across "model", as GSPMD partitions the
+reference's (an all-gather would put the whole (B, S, V) f32 logits on
+every rank).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..models import model as MDL
+from ..models.sharding import BATCH_AXES, from_shard, shard
 from ..tree import flatten
 from .optimizer import adamw_init, adamw_update
 
@@ -36,16 +48,79 @@ class TrainState(NamedTuple):
     step: torch.Tensor
 
 
+def _logsumexp(logits):
+    """``torch.logsumexp`` over the last dim; for a DTensor, the same
+    steps (max, exp-sum, log, add) as DTensor ops, so a vocab-sharded
+    dim reduces across ranks instead of being gathered, with
+    ``torch.logsumexp``'s own backward (``grad * exp(x - result)``)."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    return _ShardedLogSumExp.apply(logits)
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``.  For logits whose vocab dim is sharded over
+    "model", each rank gathers the labels that fall in its vocab slice
+    (the others count 0) and the slices' pending sum is taken across
+    "model": every op stays on the rank's own shard, in the backward
+    too."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, places = logits.device_mesh, list(logits.placements)
+    vdim = logits.ndim - 1
+    split = [j for j, pl in enumerate(places)
+             if isinstance(pl, Shard) and pl.dim == vdim]
+    rest = [Replicate() if j in split else pl for j, pl in enumerate(places)]
+    if isinstance(labels, DTensor):
+        lab = labels.redistribute(mesh, rest).to_local()
+    else:
+        lab = distribute_tensor(labels, mesh, rest,
+                                src_data_rank=None).to_local()
+    ll = logits.to_local(grad_placements=places)
+    n = ll.shape[-1]
+    off, size = 0, logits.shape[-1]
+    coord = mesh.get_coordinate()
+    for j in split:
+        size //= mesh.size(j)
+        off += coord[j] * size
+    idx = lab - off
+    mine = (idx >= 0) & (idx < n)
+    g = torch.gather(ll, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    g = torch.where(mine, g, 0.0)
+    out = [Partial() if j in split else pl for j, pl in enumerate(rest)]
+    return shard(from_shard(g, labels.shape, out, mesh), BATCH_AXES, None)
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits):
+        # each reduction over the vocab summed across ranks at once
+        # (batch-sharded, replicated over "model"), so no pending sum
+        # reaches the backward sequence-sharded
+        m = shard(logits.amax(dim=-1, keepdim=True), BATCH_AXES, None,
+                  None)
+        m = torch.where(m.abs() == float("inf"), 0.0, m)
+        e = shard(torch.exp(logits - m).sum(dim=-1), BATCH_AXES, None)
+        out = torch.log(e) + m[..., 0]
+        ctx.save_for_backward(logits, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, out = ctx.saved_tensors
+        return grad[..., None] * torch.exp(logits - out[..., None])
+
+
 def loss_fn(params, tokens, labels, cfg, *, aux_weight: float = 0.01,
-            remat: bool = False):
+            remat: bool = False, sp: bool = False):
     """Mean next-token cross-entropy + MoE aux loss.  Returns
     ``(total, (loss, aux))``."""
-    logits, aux = MDL.forward(params, tokens, cfg, remat=remat)
+    logits, aux = MDL.forward(params, tokens, cfg, remat=remat, sp=sp)
     logits = logits.float()
     mask = (labels >= 0).float()
     labels_safe = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    logz = _logsumexp(logits)
+    gold = _gold(logits, labels_safe)
     nll = (logz - gold) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + aux_weight * aux, (loss, aux)
@@ -58,21 +133,37 @@ def init_train_state(params, compressor=None) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _like(g, p):
+    """``g`` with ``p``'s placements when ``p`` is a DTensor (a pending
+    sum resolved, a shard taken), contiguous."""
+    if isinstance(p, DTensor) and tuple(g.placements) != \
+            tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.contiguous()
+
+
+def _plain(x):
+    """A replicated DTensor scalar as a plain tensor (no collective);
+    a plain tensor unchanged."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def grads_of(params, tokens, labels, cfg, *, aux_weight: float = 0.01,
-             remat: bool = False):
+             remat: bool = False, sp: bool = False):
     """``(grads, loss, aux)``: the gradient tree of ``loss_fn``'s total
     (zeros for unused parameters, contiguous, each in its parameter's
-    dtype) and the detached loss and aux loss."""
+    dtype and placements) and the detached loss and aux loss."""
     leaves, treedef = flatten(params)
     with torch.enable_grad():
         inputs = [p.detach().requires_grad_() for p in leaves]
         total, (loss, aux) = loss_fn(treedef.unflatten(inputs), tokens,
                                      labels, cfg, aux_weight=aux_weight,
-                                     remat=remat)
+                                     remat=remat, sp=sp)
         grads = torch.autograd.grad(total, inputs, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g.contiguous()
+    grads = [torch.zeros_like(p) if g is None else _like(g, p)
              for p, g in zip(leaves, grads)]
-    return treedef.unflatten(grads), loss.detach(), aux.detach()
+    return treedef.unflatten(grads), _plain(loss.detach()), \
+        _plain(aux.detach())
 
 
 def make_train_step(cfg, lr_schedule: Callable, *,
@@ -80,18 +171,20 @@ def make_train_step(cfg, lr_schedule: Callable, *,
                     aux_weight: float = 0.01,
                     weight_decay: float = 0.1,
                     grad_clip: float = 1.0,
-                    remat: bool = True):
+                    remat: bool = True,
+                    sp: bool = True):
     """Build the train step.  ``compressor``: optional DiSketch gradient
-    compressor (train/compress.py).  ``remat``: recompute each layer block
-    in the backward pass (see models/model.py).  The reference's ``sp``
-    (sequence-parallel residuals over a ``model`` mesh axis) has no
-    counterpart on one card.  ``batch``: ``{"tokens", "labels"}`` tensors
-    on the parameters' device."""
-
+    compressor (train/compress.py).  ``remat``/``sp``: activation
+    checkpointing + sequence-parallel residuals (see models/model.py;
+    ``sp`` acts only under a sharding env).  ``batch``: ``{"tokens",
+    "labels"}`` tensors on the parameters' device (DTensors, or plain
+    tensors taken as replicated, under a sharding env)."""
     def step_fn(state: TrainState, batch):
-        grads, loss, aux = grads_of(state.params, batch["tokens"],
-                                    batch["labels"], cfg,
-                                    aux_weight=aux_weight, remat=remat)
+        tokens = shard(batch["tokens"], BATCH_AXES, None)
+        labels = shard(batch["labels"], BATCH_AXES, None)
+        grads, loss, aux = grads_of(state.params, tokens, labels, cfg,
+                                    aux_weight=aux_weight, remat=remat,
+                                    sp=sp)
         comp = state.comp
         if compressor is not None:
             grads, comp = compressor.apply(grads, comp, state.step)

@@ -297,10 +297,39 @@ def test_keys_are_low_32_bits_of_flatten_offsets(monkeypatch):
             np.uint32).astype(np.int64))
 
 
-def test_axis_names_refused():
-    with pytest.raises(ValueError, match="no counterpart on one card"):
-        PC(axis_names=("data",))
-    PC(axis_names=None)
+def test_axis_names_without_env_is_identity():
+    """``axis_names`` is no longer refused (the data-parallel sketch sum
+    is ported): without a sharding environment, or in one without those
+    mesh axes, it sums over nothing, so the compressor equals one without
+    it bit for bit (the 4-rank sum: ``test_torch_distributed.py``)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.sharding import sharding_env
+
+    rng = np.random.default_rng(5)
+    grads = {"a": torch.from_numpy(rng.standard_normal(3000,
+                                                       dtype=np.float32)),
+             "b": torch.from_numpy(rng.standard_normal((40, 30),
+                                                       dtype=np.float32))}
+    outs = []
+    for names, env in ((None, None), (("data",), None),
+                       (("pod", "data"), AbstractMesh((4,), ("model",)))):
+        comp = PC(width=1 << 8, depth=4, n_sub=2, k_frac=0.05,
+                  axis_names=names)
+        assert comp.axis_names == names
+        state = comp.init(grads)
+        got = []
+        for step in range(2):
+            g = {k: v.clone() for k, v in grads.items()}
+            if env is None:
+                o, state = comp.apply(g, state, torch.tensor(step))
+            else:
+                with sharding_env(env):
+                    o, state = comp.apply(g, state, torch.tensor(step))
+            got.append(o)
+        outs.append(got)
+    for got in outs[1:]:
+        for a, b in zip(got, outs[0]):
+            assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_state_is_the_reference_layout():
