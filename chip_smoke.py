@@ -61,6 +61,15 @@ full-scale setting:
   equal to the twin's, one window's per-shard B1 groups held to the
   plain version, and the bytes of the estimate slices the query gather
   hands to the merge device;
+* the sanitizer (``repro_torch.sanitize``, armed by ``REPRO_SANITIZE=1``):
+  the cs window-8 query of all 5-hop flows, the UnivMon entropy with the
+  device G-sum and the 4-shard cs query, each run once more on its
+  resident system under the armed transfer guard (the CUDA sync debug
+  mode at "error" and the host-sync dispatch mode) and equal to its
+  disarmed answer bit for bit; a host read, an upload and a boolean-mask
+  index raising under the guard; and the library-load counter (one load
+  of B1's library after ``build.load.cache_clear()``, none in a second
+  replay of one window with its query);
 * the model serving path (``repro_torch.launch.serve``; torch ops, no
   kernel of its own): every model family at its ``reduced`` size on the
   card held to the port on the CPU with the same weights; gemma2-2b at
@@ -103,6 +112,7 @@ missing.  The last line of its output is the JSON result.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -1029,7 +1039,7 @@ def build_scenario() -> dict:
     sel = wl.path_len == 5
     return dict(wl=wl, rep=rep, mems=mems, events=events,
                 keys=wl.keys[sel], truth=wl.sizes[sel],
-                paths=[p for p, s in zip(wl.paths, sel) if s])
+                paths=[p for p, s in zip(wl.paths, sel) if s], guarded=[])
 
 
 def main_path(dev, sc):
@@ -1105,6 +1115,15 @@ def main_path(dev, sc):
         err_rmse = rmse(est, truth)
         _pinned(f"{kind} window 8 RMSE", err_rmse, RMSE_PIN[(kind, "window 8")],
                 PIN_RTOL)
+        if kind == "cs":
+            _guarded(sc, f"cs window {WINDOW}: query_flows(merge='fragment') "
+                     f"of {len(keys)} 5-hop flows", est, q_s,
+                     lambda: system.query_flows(keys, paths, epochs,
+                                                merge="fragment"),
+                     lambda e: _pinned("guarded cs window 8 RMSE",
+                                       rmse(e, truth),
+                                       RMSE_PIN[("cs", "window 8")],
+                                       PIN_RTOL))
         # ... and, per window, the path group whose rows are the smallest
         # against the numpy oracle on a host copy of just those rows (the
         # buffers themselves stay resident)
@@ -1493,6 +1512,14 @@ def univmon_window(dev, sc):
     q_s = time.perf_counter() - q0
     _pinned("um window 8 entropy (fragment merge)", ent,
             ENTROPY_PIN["window 8 fragment k_heavy 1024"], PIN_RTOL_F32)
+    _guarded(sc, f"um window {WINDOW}: query_entropy(merge='fragment') of "
+             f"{len(wl.keys)} flows, device G-sum", ent, q_s,
+             lambda: system.query_entropy(
+                 wl.keys, wl.paths, epochs, total, n_levels=N_LEVELS,
+                 level_seed=LEVEL_SEED, merge="fragment"),
+             lambda e: _pinned("guarded um window 8 entropy", e,
+                               ENTROPY_PIN["window 8 fragment k_heavy 1024"],
+                               PIN_RTOL_F32))
     # the same per-level estimates, whose G-sum gave ``ent``; the device
     # G-sum against the float64 combine with the device's selection
     by_path = path_groups(wl.paths)
@@ -2868,6 +2895,15 @@ def _sharded_window(dev, sc, kind, mesh):
     err_rmse = rmse(est["sharded"], sc["truth"])
     _pinned(f"sharded {kind} window 8 RMSE", err_rmse,
             RMSE_PIN[(kind, "window 8")], PIN_RTOL)
+    if kind == "cs":
+        _guarded(sc, f"sharded cs window {WINDOW} ({N_SHARDS} shards): "
+                 f"query_flows(merge='fragment') of {len(keys)} 5-hop flows",
+                 est["sharded"], q_s["sharded"],
+                 lambda: sharded.query_flows(keys, paths, range(N_EPOCHS),
+                                             merge="fragment"),
+                 lambda e: _pinned("guarded sharded cs window 8 RMSE",
+                                   rmse(e, sc["truth"]),
+                                   RMSE_PIN[("cs", "window 8")], PIN_RTOL))
     _sharded_line(f"{kind} window {WINDOW}", runs, q_s, meter,
                   f"; {cells} cells == the twin's, window {WINDOW}'s shard "
                   f"groups == plain (max_abs_err {err}); {len(keys)} 5-hop "
@@ -2983,6 +3019,159 @@ def sharded_phase(dev, sc):
     torch.cuda.empty_cache()
     _log(f"sharded B1 launches of the sharded runs: {res['ragged']}")
     return res
+
+
+# -- the sanitizer ------------------------------------------------------------
+
+@contextlib.contextmanager
+def _sanitizer_armed():
+    """``REPRO_SANITIZE=1`` for the ``with`` body, the old value after."""
+    from repro_torch import sanitize
+
+    prev = os.environ.get(sanitize._ENV)
+    os.environ[sanitize._ENV] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[sanitize._ENV]
+        else:
+            os.environ[sanitize._ENV] = prev
+
+
+def _guarded(sc, what, want, want_s, query, pin):
+    """``query()`` once more with the sanitizer armed: the query plane's
+    device compute under ``sanitize.transfer_guard()`` (the CUDA sync
+    debug mode at "error" and the host-sync dispatch mode), on a system an
+    earlier phase holds resident.  Its answer must equal the disarmed one,
+    ``want``, bit for bit and hold its pin (``pin``); ``(what, armed s,
+    disarmed s)`` goes to ``sc["guarded"]`` for the sanitize phase."""
+    with _sanitizer_armed():
+        got, s = _timed_query(query)
+    assert np.array_equal(got, want), f"{what}: guarded {got!r} != {want!r}"
+    pin(got)
+    sc["guarded"].append((what, s, want_s))
+
+
+def _one_window(sc, keys, paths):
+    """A cs system that ran the first window of the §6.1 replay (one
+    ``run_window`` of ``WINDOW`` epochs) and its query of ``keys``."""
+    import torch
+
+    from repro_torch.core.disketch import DiSketchSystem
+
+    rep = sc["rep"]
+    system = DiSketchSystem(sc["mems"], "cs", rho_target=RHO["cs"],
+                            log2_te=LOG2_TE)
+    order = system.fleet.frag_order
+    system.run_window(0, [rep.epoch_stream(e) for e in range(WINDOW)],
+                      packets=[rep.epoch_packet(e, order)
+                               for e in range(WINDOW)])
+    torch.cuda.synchronize()
+    return system, system.query_flows(keys, paths, range(WINDOW),
+                                      merge="fragment")
+
+
+def sanitize_phase(dev, sc):
+    """The sanitizer (``repro_torch.sanitize``, armed by
+    ``REPRO_SANITIZE=1``) on the card.  (a) The guarded §6.1 queries the
+    window, UnivMon and sharded phases ran on their resident systems (cs
+    window 8, the UnivMon entropy with the device G-sum, 4 shards), each
+    equal to its disarmed answer with its pin held.  (b) Positive
+    controls: a host read, an upload and a boolean-mask index each raise
+    under the armed guard, the sync debug mode is put back after each, and
+    the copy out after the guard works.  (c) The load counter: with
+    ``build.load``'s cache cleared, a guarded replay of one cs window with
+    its query loads B1's library exactly once, and a second one loads
+    nothing and answers the same; that window's groups == the plain
+    version.  (d) The cost: the guarded queries' times beside the disarmed
+    ones.  Returns what the kernel line needs."""
+    import torch
+
+    from repro_torch import sanitize
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    smi = _nvidia_smi()
+    # (a) the guarded full-scale queries of the earlier phases
+    names = [what.split(":")[0] for what, _, _ in sc["guarded"]]
+    assert names == [f"cs window {WINDOW}", f"um window {WINDOW}",
+                     f"sharded cs window {WINDOW} ({N_SHARDS} shards)"], names
+    for what, s, s0 in sc["guarded"]:
+        _log(f"sanitize guarded {what}: {s:.3f} s armed against {s0:.3f} s "
+             "disarmed; == the disarmed answer bit for bit, pin held")
+
+    # (b) positive controls: each leak raises under the armed guard
+    t = torch.arange(16, dtype=torch.float32, device=dev)
+    mode0 = torch.cuda.get_sync_debug_mode()
+    controls = {"t.sum().item()": lambda: t.sum().item(),
+                "torch.tensor(1.0, device='cuda')":
+                    lambda: torch.tensor(1.0, device=dev),
+                "t[t > 3]": lambda: t[t > 3]}
+    caught = {}
+    with _sanitizer_armed():
+        for name, leak in controls.items():
+            try:
+                with sanitize.transfer_guard():
+                    leak()
+            except RuntimeError as e:
+                caught[name] = (f"{type(e).__name__}: "
+                                f"{str(e).splitlines()[0][:90]}")
+            else:
+                raise AssertionError(f"sanitize: {name} did not raise under "
+                                     "the armed guard")
+            assert torch.cuda.get_sync_debug_mode() == mode0, name
+        with sanitize.transfer_guard():
+            assert torch.cuda.get_sync_debug_mode() == 2
+            y = torch.where(t > 3, 2 * t, 0.0)
+        out = y.cpu().numpy()            # the explicit copy out, after it
+    assert out.tolist() == [0.0] * 4 + [2.0 * i for i in range(4, 16)]
+    for name, why in caught.items():
+        _log(f"sanitize control {name} under the armed guard: raised {why}")
+
+    # (c) the load counter: one load of B1's library, then none
+    keys, paths = sc["keys"], sc["paths"]
+    build.load.cache_clear()
+    reset_counts()
+    h0 = time.perf_counter()
+    with _sanitizer_armed():
+        snap = sanitize.trace_snapshot()
+        first, est1 = _one_window(sc, keys, paths)
+        loads1 = sanitize.traces_since(snap)
+        snap = sanitize.trace_snapshot()
+        second, est2 = _one_window(sc, keys, paths)
+        loads2 = sanitize.traces_since(snap)
+    replay_s = time.perf_counter() - h0
+    counts = read_counts()
+    assert loads1 == {"build.fleet_ragged": 1}, loads1
+    assert loads2 == {}, loads2
+    assert np.array_equal(est1, est2) and np.isfinite(est1).all()
+    launches = counts["fleet_ragged"]
+    assert launches > 0 and counts["sketch_update"] == \
+        counts["fleet_dense"] == 0, counts
+    err = 0.0
+    for (args, kw), (_, got) in zip(_window_groups(second.fleet, sc["rep"], 0),
+                                    second.fleet._window_bufs[0][0].device(),
+                                    strict=True):
+        plain = FK.fleet_update_ragged_ref(*_to_device(args, dev), **kw)
+        got = got.reshape(plain.shape)
+        err = max(err, float((got - plain).abs().max()))
+        assert torch.equal(got, plain), "sanitize window != plain version"
+        del plain
+    del first, second
+    torch.cuda.empty_cache()
+
+    # (d) the cost
+    armed = sum(s for _, s, _ in sc["guarded"])
+    disarmed = sum(s0 for _, _, s0 in sc["guarded"])
+    _log(f"sanitize [{smi}]: controls raised {len(caught)} of "
+         f"{len(controls)}; loads after cache_clear {loads1}, then "
+         f"{loads2}; two guarded one-window replays with their queries of "
+         f"{len(keys)} 5-hop flows {replay_s:.2f} s, B1 launches {launches}, "
+         f"window groups == plain (max_abs_err {err}); guarded queries "
+         f"{armed:.3f} s against {disarmed:.3f} s disarmed (+"
+         f"{armed - disarmed:.3f} s, run in the earlier phases)")
+    return dict(ragged=launches, max_abs_err=err)
 
 
 # -- the model serving path --------------------------------------------------
@@ -4250,6 +4439,7 @@ def main() -> int:
         export = _phase(export_phase, sc, res)
         chaos = _phase(chaos_phase, dev, sc, res)
         sharded = _phase(sharded_phase, dev, sc)
+        san = _phase(sanitize_phase, dev, sc)
         served = _phase(serve_phase, dev)
         _phase(train_phase, dev, served)
         del served
@@ -4260,11 +4450,11 @@ def main() -> int:
             ("fleet_ragged", "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
              + um_e["ragged"] + churn["ragged"] + ctrl["ragged"]
-             + export + chaos["ragged"] + sharded["ragged"],
+             + export + chaos["ragged"] + sharded["ragged"] + san["ragged"],
              max(worst["fleet_ragged"], res["max_abs_err"],
                  um_w["max_abs_err"], churn["max_abs_err"],
                  ctrl["max_abs_err"], chaos["max_abs_err"],
-                 sharded["max_abs_err"]), timing),
+                 sharded["max_abs_err"], san["max_abs_err"]), timing),
             ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),

@@ -303,6 +303,22 @@ def fleet_query_window_device(stack, params_by_epoch, keys: np.ndarray,
                                      key_group=key_group)
 
 
+def um_fleet_query_window_device(stack, params_by_epoch, keys: np.ndarray,
+                                 n_levels: int,
+                                 frag_sel: Optional[np.ndarray] = None,
+                                 ) -> np.ndarray:
+    """All ``n_levels`` UnivMon window estimates in one device call — thin
+    re-export of ``repro_torch.kernels.sketch_query.um_window_query_device``
+    (the §6.2 per-level inputs; see ``FleetEpochRunner
+    .um_level_window_query`` for the routed entry point).  A row-sharded
+    window is passed as its row groups, each on its shard's device, in
+    place of the reference's ``mesh=``."""
+    from ..kernels.sketch_query import um_window_query_device
+
+    return um_window_query_device(stack, params_by_epoch, keys, n_levels,
+                                  frag_sel=frag_sel)
+
+
 # ---------------------------------------------------------------------------
 # UnivMon network-wide G-sum / entropy over composite sketches (§6.2)
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+from ..sanitize import note_trace
+
 _PKG = Path(__file__).resolve().parent
 #: Library name -> CUDA source, relative to this directory.
 SOURCES: Dict[str, str] = {
@@ -104,6 +106,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if it is missing."""
+    """The loaded library ``name``, built first if it is missing.  Each
+    cache miss is one ``build.<name>`` count of ``sanitize.note_trace``:
+    a steady-state run loads nothing."""
+    note_trace(f"build.{name}")
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))

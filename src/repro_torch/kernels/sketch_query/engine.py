@@ -33,6 +33,14 @@ The reference's version is XLA, not Pallas, so it needs no hand-written
 kernel.  Only the ``(K,)`` estimates cross back to the host.  Keys are not
 padded to power-of-two buckets: eager PyTorch compiles nothing per shape.
 
+Each entry point runs in three stages: every host input (keys, seeds,
+``n``/width tables, row positions, masks) is uploaded first, in one pass
+over the row groups; the device compute then runs under
+``sanitize.transfer_guard()`` (armed by ``REPRO_SANITIZE=1``: any op in it
+that makes the host wait for the card raises); the estimates are copied
+out after the guard.  The host boundary of this module is exactly its
+entry points and ``_prep_window_params`` (host tables only).
+
 Exactness: counters are exact integers in f32 and the x``n`` scaling is a
 power of two, so every per-row estimate is exact and the min/median
 *selection* equals the float64 host oracle's; only the CS median midpoint
@@ -45,6 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ... import sanitize
 from ...core.hashing import hash_mod_torch, hash_pow2_torch, hash_sign_torch
 from ...device import resolve_device
 from ..sketch_update.fleet import (PARAM_COL_SEED, PARAM_MIT, PARAM_N_SUB,
@@ -87,8 +96,7 @@ def _masked_merge(raw: torch.Tensor, frag_sel: torch.Tensor, *,
     An (epoch, key) that selects no row merges to 0."""
     sel = frag_sel if frag_sel.ndim > 1 else frag_sel[None, :]
     sel = sel if sel.ndim == 3 else sel[:, :, None]
-    masked = torch.where(sel, raw,
-                         torch.tensor(float("inf"), device=raw.device))
+    masked = torch.where(sel, raw, raw.new_full((), float("inf")))
     if kind == "cms":
         merged = masked.min(dim=1).values                 # (E, K)
     else:
@@ -190,18 +198,23 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
     # the merge runs on the first group's device: under a mesh, shard 0's
     # groups come first, on the mesh's first device
     dev = groups[0][1].device
-    raw = _gather_groups(groups, params, ns, widths, keys, need, dev,
-                         signed=kind in ("cs", "um"),
-                         mitigate=bool(single_hop))
+    staged = _stage_groups(groups, params, ns, widths, keys, need, dev,
+                           mitigate=bool(single_hop))
     sel = _put(frag_sel, dev, torch.bool)
-    if key_group is not None:
-        sel = sel[_put(key_group, dev)].permute(1, 2, 0)     # (E, R, K)
-    merged = _masked_merge(raw, sel, kind=kind)
+    kg = None if key_group is None else _put(key_group, dev)
+    with sanitize.transfer_guard():
+        raw = _gather_groups(staged, e_count, n_rows, len(keys), dev,
+                             signed=kind in ("cs", "um"))
+        if kg is not None:
+            sel = sel[kg].permute(1, 2, 0)                   # (E, R, K)
+        est = _masked_merge(raw, sel, kind=kind).to(torch.float64).sum(
+            dim=0)
     # (K,) estimates: the only counter-derived bytes that leave the device
-    return merged.to(torch.float64).sum(dim=0).cpu().numpy()
+    return est.cpu().numpy()
 
 
 def _put(a, dev, dtype=torch.int64) -> torch.Tensor:
+    """A host array on ``dev`` as ``dtype`` (an upload: before the guard)."""
     return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
 
@@ -213,22 +226,21 @@ def _all_gather_rows(part: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return part.to(dev)
 
 
-def _gather_groups(groups, params: np.ndarray, ns: np.ndarray,
-                   widths: np.ndarray, keys: np.ndarray, need: np.ndarray,
-                   dev: torch.device, *, signed: bool,
-                   mitigate: bool) -> torch.Tensor:
-    """``_gather_raw`` over a window's row groups, each on its own device:
-    the ``(E, R, K)`` f32 raw estimates of the rows ``need`` (R,) selects,
-    gathered into one tensor on ``dev`` in row order.  The other rows are
-    left unwritten; the merge masks them.  ``mitigate`` asks for the §4.4
-    average on the rows that mitigate."""
-    e_count, n_rows = params.shape[:2]
+def _stage_groups(groups, params: np.ndarray, ns: np.ndarray,
+                  widths: np.ndarray, keys: np.ndarray, need: np.ndarray,
+                  dev: torch.device, *, mitigate: bool):
+    """Upload what ``_gather_groups`` reads, in one pass over a window's
+    row groups and before any compute: for each group with a row that
+    ``need`` (R,) selects, ``(counters, inputs, rows on dev)``, where
+    ``inputs`` are ``_gather_raw``'s positional arguments after the stack
+    on the group's own device (the keys once per device).  ``mitigate``
+    asks for the §4.4 average on the rows that mitigate; it is dropped
+    when no row does.  Returns ``(staged, mitigate)``."""
     mit_rows = params[0, :, PARAM_MIT] != 0
     mitigate = mitigate and bool(mit_rows.any())
     keys64 = keys.astype(np.int64)
     k_on = {}
-    raw = torch.empty((e_count, n_rows, len(keys)), dtype=torch.float32,
-                      device=dev)
+    staged = []
     for rows, counters in groups:
         pos = np.flatnonzero(need[np.asarray(rows)])
         if not len(pos):
@@ -237,14 +249,29 @@ def _gather_groups(groups, params: np.ndarray, ns: np.ndarray,
         gdev = counters.device
         if gdev not in k_on:
             k_on[gdev] = _put(keys64, gdev)
-        part = _gather_raw(
-            counters, _put(pos, gdev),
-            _put(params[:, r, PARAM_COL_SEED], gdev),
-            _put(params[:, r, PARAM_SIGN_SEED], gdev),
-            _put(params[:, r, PARAM_SUB_SEED], gdev), _put(ns[r], gdev),
-            _put(widths[r], gdev), _put(mit_rows[r], gdev, torch.bool),
-            k_on[gdev], signed=signed, mitigate=mitigate)
-        raw[:, _put(r, dev)] = _all_gather_rows(part, dev)
+        inputs = (_put(pos, gdev), _put(params[:, r, PARAM_COL_SEED], gdev),
+                  _put(params[:, r, PARAM_SIGN_SEED], gdev),
+                  _put(params[:, r, PARAM_SUB_SEED], gdev), _put(ns[r], gdev),
+                  _put(widths[r], gdev), _put(mit_rows[r], gdev, torch.bool),
+                  k_on[gdev])
+        staged.append((counters, inputs, _put(r, dev)))
+    return staged, mitigate
+
+
+def _gather_groups(staged, e_count: int, n_rows: int, n_keys: int,
+                   dev: torch.device, *, signed: bool) -> torch.Tensor:
+    """``_gather_raw`` over a window's staged row groups
+    (``_stage_groups``), each on its own device: the ``(E, R, K)`` f32 raw
+    estimates of the staged rows, gathered into one tensor on ``dev`` in
+    row order.  The other rows are left unwritten; the merge masks them.
+    Device compute only: it uploads nothing and reads nothing back."""
+    groups, mitigate = staged
+    raw = torch.empty((e_count, n_rows, n_keys), dtype=torch.float32,
+                      device=dev)
+    for counters, inputs, rows in groups:
+        part = _gather_raw(counters, *inputs, signed=signed,
+                           mitigate=mitigate)
+        raw[:, rows] = _all_gather_rows(part, dev)
     return raw
 
 
@@ -298,18 +325,22 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
     if len(keys) == 0:
         return np.zeros((n_levels, 0))
     dev = groups[0][1].device   # shard 0's, as above
-    raw = _gather_groups(groups, params, ns, widths, keys,
-                         np.repeat(sel2.any(axis=0), n_levels), dev,
-                         signed=True, mitigate=False)
-    raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
-           .reshape(e_count * n_levels, n_frags, -1))
+    staged = _stage_groups(groups, params, ns, widths, keys,
+                           np.repeat(sel2.any(axis=0), n_levels), dev,
+                           mitigate=False)
+    if frag_sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout below
+        frag_sel = np.repeat(frag_sel, n_levels, axis=0)
     sel = _put(frag_sel, dev, torch.bool)
-    if sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout above
-        sel = sel.repeat_interleave(n_levels, dim=0)
-    merged = _masked_merge(raw, sel, kind="um")            # (E * L, K)
+    with sanitize.transfer_guard():
+        raw = _gather_groups(staged, e_count, n_rows, len(keys), dev,
+                             signed=True)
+        raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
+               .reshape(e_count * n_levels, n_frags, -1))
+        merged = _masked_merge(raw, sel, kind="um")        # (E * L, K)
+        est = merged.reshape(e_count, n_levels, -1).to(torch.float64).sum(
+            dim=0)
     # (L, K) estimates: the only counter-derived bytes that leave the device
-    return (merged.reshape(e_count, n_levels, -1).to(torch.float64)
-            .sum(dim=0).cpu().numpy())
+    return est.cpu().numpy()
 
 
 def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
@@ -334,16 +365,19 @@ def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
     n_levels, n_keys = est_all.shape
     k = min(int(k_heavy), n_keys)
     neg_inf = float("-inf")
-    y = torch.zeros((), dtype=torch.float32, device=dev)
-    for l in range(n_levels - 1, -1, -1):
-        est = torch.where(lv >= l, torch.clamp_min(est_all[l], 1.0), neg_inf)
-        idx = torch.sort(-est, stable=True).indices[:k]
-        vals = est[idx]
-        valid = vals > neg_inf
-        gv = torch.where(valid, g(torch.where(valid, vals, 1.0)), 0.0)
-        if l == n_levels - 1:
-            y = gv.sum()
-        else:
-            in_next = ((lv[idx] >= l + 1) & valid).to(torch.float32)
-            y = 2.0 * y + ((1.0 - 2.0 * in_next) * gv).sum()
+    with sanitize.transfer_guard():
+        y = torch.zeros((), dtype=torch.float32, device=dev)
+        for l in range(n_levels - 1, -1, -1):
+            est = torch.where(lv >= l, torch.clamp_min(est_all[l], 1.0),
+                              neg_inf)
+            idx = torch.sort(-est, stable=True).indices[:k]
+            vals = est[idx]
+            valid = vals > neg_inf
+            gv = torch.where(valid, g(torch.where(valid, vals, 1.0)), 0.0)
+            if l == n_levels - 1:
+                y = gv.sum()
+            else:
+                in_next = ((lv[idx] >= l + 1) & valid).to(torch.float32)
+                y = 2.0 * y + ((1.0 - 2.0 * in_next) * gv).sum()
+    # one scalar: the only counter-derived value that leaves the device
     return float(y)

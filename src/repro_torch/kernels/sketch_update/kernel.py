@@ -11,7 +11,6 @@ itself (``fleet.ragged_geometry``, ``fleet.dense_geometry``,
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -44,17 +43,18 @@ def check_output_peak(peak: float) -> None:
 # --- what the CUDA wrappers share ------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
 def kernel_lib(name: str, *launch_argtypes) -> ctypes.CDLL:
     """Library ``name`` (``kernels.build.SOURCES``), built on first use,
     with ``<name>_launch`` declared to take ``launch_argtypes`` and return
-    the CUDA error code."""
+    the CUDA error code.  ``build.load`` is the one cache, so clearing it
+    makes the next launch load the library again."""
     from ..build import load
 
     lib = load(name)
     launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = list(launch_argtypes)
-    launch.restype = ctypes.c_int
+    if launch.argtypes is None:         # first use of this library object
+        launch.argtypes = list(launch_argtypes)
+        launch.restype = ctypes.c_int
     return lib
 
 
