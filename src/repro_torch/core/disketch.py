@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from . import equalize, query, sketches
 from . import hashing as H
@@ -327,43 +328,47 @@ class DiSketchSystem:
         memory held them, so they are zeroed unless an XOR-parity group
         (``fleet_kwargs={"parity_groups": ...}``) can rebuild them.
         """
-        if self.backend != "fleet":
-            for e, streams in enumerate(streams_list):
-                self.run_epoch(
-                    epoch0 + e, streams,
-                    events=events_by_epoch[e] if events_by_epoch else None)
-            return
-        from .fleet import pack_streams
+        with obs.span("disketch.run_window"):
+            if self.backend != "fleet":
+                for e, streams in enumerate(streams_list):
+                    self.run_epoch(
+                        epoch0 + e, streams,
+                        events=events_by_epoch[e] if events_by_epoch else None)
+                return
+            from .fleet import pack_streams
 
-        e_count = len(streams_list)
-        if events_by_epoch is not None and len(events_by_epoch) != e_count:
-            raise ValueError("events_by_epoch must have one entry per epoch "
-                             f"({len(events_by_epoch)} != {e_count})")
-        self._apply_pending_resizes()
-        for ev in (events_by_epoch[0] if events_by_epoch else ()):
-            self.apply_event(ev)
-        ns = self._control_ns()
-        dead_sets = [frozenset(self.dead)]
-        fail_pts: List[Tuple[int, int]] = []
-        for e in range(1, e_count):
-            for ev in (events_by_epoch[e] if events_by_epoch else ()):
-                if ev.kind == "fail" and ev.switch not in self.dead:
-                    fail_pts.append((e, ev.switch))
-                self.apply_event(ev, defer_resize=True)
-            dead_sets.append(frozenset(self.dead))
-        lost_sets: List[set] = [set() for _ in range(e_count)]
-        for e, sw in fail_pts:
-            for e2 in range(e):
-                if sw not in dead_sets[e2]:
-                    lost_sets[e2].add(sw)
-        if packets is None:
-            packets = [pack_streams(st, self.fleet.frag_order)
-                       for st in streams_list]
-        recs_list, pebs_list = self.fleet.run_window(
-            epoch0, ns, packets, dead_by_epoch=dead_sets,
-            lost_by_epoch=lost_sets)
-        for e, (recs, pebs) in enumerate(zip(recs_list, pebs_list)):
-            self._observe(epoch0 + e, dead_sets[e], recs, pebs)
+            e_count = len(streams_list)
+            if (events_by_epoch is not None
+                    and len(events_by_epoch) != e_count):
+                raise ValueError("events_by_epoch must have one entry per "
+                                 f"epoch ({len(events_by_epoch)} != "
+                                 f"{e_count})")
+            self._apply_pending_resizes()
+            for ev in (events_by_epoch[0] if events_by_epoch else ()):
+                self.apply_event(ev)
+            ns = self._control_ns()
+            dead_sets = [frozenset(self.dead)]
+            fail_pts: List[Tuple[int, int]] = []
+            for e in range(1, e_count):
+                for ev in (events_by_epoch[e] if events_by_epoch else ()):
+                    if ev.kind == "fail" and ev.switch not in self.dead:
+                        fail_pts.append((e, ev.switch))
+                    self.apply_event(ev, defer_resize=True)
+                dead_sets.append(frozenset(self.dead))
+            lost_sets: List[set] = [set() for _ in range(e_count)]
+            for e, sw in fail_pts:
+                for e2 in range(e):
+                    if sw not in dead_sets[e2]:
+                        lost_sets[e2].add(sw)
+            if packets is None:
+                packets = [pack_streams(st, self.fleet.frag_order)
+                           for st in streams_list]
+            recs_list, pebs_list = self.fleet.run_window(
+                epoch0, ns, packets, dead_by_epoch=dead_sets,
+                lost_by_epoch=lost_sets)
+            with obs.span("disketch.observe"):
+                for e, (recs, pebs) in enumerate(zip(recs_list, pebs_list)):
+                    self._observe(epoch0 + e, dead_sets[e], recs, pebs)
 
     # -- query plane ---------------------------------------------------------
 
@@ -438,48 +443,50 @@ class DiSketchSystem:
           * ``"oblivious"`` pretends nothing failed: the zeroed rows enter
             the min/median, and nothing is extrapolated.
         """
-        if failures not in ("oblivious", "mask", "recover"):
-            raise ValueError(f"unknown failure policy {failures!r}")
-        self.last_observability = self.observability(epochs)
-        keys = np.asarray(keys, dtype=np.uint32)
-        out = np.zeros(len(keys))
-        by_path = query.path_groups(paths)
-        device_ok = (merge == "fragment" and self.fleet is not None
-                     and self.fleet.has_device_window(epochs))
-        if failures == "recover" and self.fleet is not None and not device_ok:
-            # the device plane recovers inside window_query; the record
-            # plane needs the windows patched before it reads them
-            self.fleet.recover(epochs)
-            failures = "mask"
-        if device_ok:
-            # one gather per window for every path, single-hop paths
-            # (the §4.4 average) apart
-            for hop1 in (False, True):
-                part = [(p, i) for p, i in by_path.items()
-                        if (len(p) == 1) == hop1]
-                if part:
-                    idx = np.concatenate([i for _, i in part])
-                    out[idx] = self.fleet.window_query_groups(
-                        epochs, keys, part, single_hop=hop1,
-                        failures=failures)[idx]
+        with obs.span("disketch.query_flows"):
+            if failures not in ("oblivious", "mask", "recover"):
+                raise ValueError(f"unknown failure policy {failures!r}")
+            self.last_observability = self.observability(epochs)
+            keys = np.asarray(keys, dtype=np.uint32)
+            out = np.zeros(len(keys))
+            by_path = query.path_groups(paths)
+            device_ok = (merge == "fragment" and self.fleet is not None
+                         and self.fleet.has_device_window(epochs))
+            if (failures == "recover" and self.fleet is not None
+                    and not device_ok):
+                # the device plane recovers inside window_query; the record
+                # plane needs the windows patched before it reads them
+                self.fleet.recover(epochs)
+                failures = "mask"
+            if device_ok:
+                # one gather per window for every path, single-hop paths
+                # (the §4.4 average) apart
+                for hop1 in (False, True):
+                    part = [(p, i) for p, i in by_path.items()
+                            if (len(p) == 1) == hop1]
+                    if part:
+                        idx = np.concatenate([i for _, i in part])
+                        out[idx] = self.fleet.window_query_groups(
+                            epochs, keys, part, single_hop=hop1,
+                            failures=failures)[idx]
+                return out
+            level = 0 if self.kind == "um" else None
+            for path, idxs in by_path.items():
+                recs = self._records_for(path, epochs, failures=failures)
+                scale = 1.0
+                if failures != "oblivious":
+                    # query_window skips blind epochs: extrapolate O_Q from the
+                    # observed ones (§4.3's blind-spot fill, over epochs)
+                    n_obs, scale = query.window_observability(recs)
+                    if not n_obs:
+                        raise ValueError(
+                            f"no epoch in {list(epochs)} has a live fragment "
+                            f"on path {path}; the window is unobservable")
+                sh = np.full(len(idxs), len(path) == 1)
+                out[idxs] = query.query_window(
+                    recs, keys[idxs], self.kind, single_hop=sh, level=level,
+                    merge=merge) * scale
             return out
-        level = 0 if self.kind == "um" else None
-        for path, idxs in by_path.items():
-            recs = self._records_for(path, epochs, failures=failures)
-            scale = 1.0
-            if failures != "oblivious":
-                # query_window skips blind epochs: extrapolate O_Q from the
-                # observed ones (§4.3's blind-spot fill, over epochs)
-                n_obs, scale = query.window_observability(recs)
-                if not n_obs:
-                    raise ValueError(
-                        f"no epoch in {list(epochs)} has a live fragment on "
-                        f"path {path}; the window is unobservable")
-            sh = np.full(len(idxs), len(path) == 1)
-            out[idxs] = query.query_window(
-                recs, keys[idxs], self.kind, single_hop=sh, level=level,
-                merge=merge) * scale
-        return out
 
     def query_entropy(self, keys: np.ndarray,
                       paths: Sequence[Tuple[int, ...]],
@@ -505,44 +512,47 @@ class DiSketchSystem:
         epochs), while the device plane scales the per-level estimates by
         E / E_observable as the frequency path does.
         """
-        if self.kind != "um":
-            raise ValueError(f"query_entropy needs a UnivMon system, this "
-                             f"one is {self.kind!r}")
-        if failures not in ("oblivious", "mask", "recover"):
-            raise ValueError(f"unknown failure policy {failures!r}")
-        self.last_observability = self.observability(epochs)
-        by_path = query.path_groups(paths)
-        keys = np.asarray(keys, dtype=np.uint32)
-        device_ok = (merge == "fragment" and self.fleet is not None
-                     and self.fleet.has_device_window(epochs)
-                     and n_levels == self.fleet.n_levels
-                     and level_seed == self.fleet.level_seed)
-        if device_ok:
-            from ..kernels.sketch_query import um_gsum_device
+        with obs.span("disketch.query_entropy"):
+            if self.kind != "um":
+                raise ValueError(f"query_entropy needs a UnivMon system, this "
+                                 f"one is {self.kind!r}")
+            if failures not in ("oblivious", "mask", "recover"):
+                raise ValueError(f"unknown failure policy {failures!r}")
+            self.last_observability = self.observability(epochs)
+            by_path = query.path_groups(paths)
+            obs.add("path_groups", len(by_path))
+            keys = np.asarray(keys, dtype=np.uint32)
+            device_ok = (merge == "fragment" and self.fleet is not None
+                         and self.fleet.has_device_window(epochs)
+                         and n_levels == self.fleet.n_levels
+                         and level_seed == self.fleet.level_seed)
+            if device_ok:
+                from ..kernels.sketch_query import um_gsum_device
 
-            ests, lvls = [], []
+                ests, lvls = [], []
+                for path, idxs in by_path.items():
+                    ks = keys[idxs]
+                    ests.append(self.fleet.um_level_window_query(
+                        epochs, ks, path=path, failures=failures))
+                    with obs.span("hash.level_of"):
+                        lvls.append(H.level_of(ks, level_seed, n_levels))
+                if not ests:
+                    return 0.0 if total <= 0 else float(np.log2(total))
+                s = um_gsum_device(np.concatenate(ests, axis=1),
+                                   np.concatenate(lvls), _g_entropy,
+                                   k_heavy=k_heavy, device=self.fleet.device)
+                if total <= 0:
+                    return 0.0
+                return float(np.log2(total) - s / total)
+            if failures == "recover" and self.fleet is not None:
+                self.fleet.recover(epochs)
+                failures = "mask"
+            recs, keysets = [], []
             for path, idxs in by_path.items():
-                ks = keys[idxs]
-                ests.append(self.fleet.um_level_window_query(
-                    epochs, ks, path=path, failures=failures))
-                lvls.append(H.level_of(ks, level_seed, n_levels))
-            if not ests:
-                return 0.0 if total <= 0 else float(np.log2(total))
-            s = um_gsum_device(np.concatenate(ests, axis=1),
-                               np.concatenate(lvls), _g_entropy,
-                               k_heavy=k_heavy, device=self.fleet.device)
-            if total <= 0:
-                return 0.0
-            return float(np.log2(total) - s / total)
-        if failures == "recover" and self.fleet is not None:
-            self.fleet.recover(epochs)
-            failures = "mask"
-        recs, keysets = [], []
-        for path, idxs in by_path.items():
-            recs.append(self._records_for(path, epochs, failures=failures))
-            keysets.append(keys[idxs])
-        return query.um_entropy_window(recs, keysets, n_levels, level_seed,
-                                       total, k_heavy=k_heavy, merge=merge)
+                recs.append(self._records_for(path, epochs, failures=failures))
+                keysets.append(keys[idxs])
+            return query.um_entropy_window(recs, keysets, n_levels, level_seed,
+                                           total, k_heavy=k_heavy, merge=merge)
 
 
 def calibrate_rho_target(switch_memories: Dict[int, int], kind: str,

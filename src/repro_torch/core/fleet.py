@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels.sketch_update import fleet as FK
 from ..kernels.sketch_update.kernel import (LVL_FIELD_MASK, LVL_SHIFT,
@@ -347,8 +348,9 @@ def dispatch_ragged_grouped(params: np.ndarray,
             rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
             all_rows = (np.arange(e_count)[:, None] * n_frags * L
                         + rows[None, :]).ravel()
-            keys, vals, ts, block_frag = pack_csr(
-                [p.select(frag_idx) for p in packets], blk)
+            with obs.span("fleet.pack_csr"):
+                keys, vals, ts, block_frag = pack_csr(
+                    [p.select(frag_idx) for p in packets], blk)
             out_g = FK.fleet_update_ragged(
                 keys, vals, ts, params[all_rows], block_frag,
                 n_sub_max=int(n_g), width_max=w_g, log2_te=log2_te,
@@ -724,16 +726,17 @@ class FleetEpochRunner:
         # covered by the output peak check.
         if self.kind not in ("cs", "um"):
             return
-        for packet in packets:
-            if not len(packet.values):
-                continue
-            cum = np.concatenate([[0], np.cumsum(np.abs(packet.values))])
-            seg_mass = cum[packet.offsets[1:]] - cum[packet.offsets[:-1]]
-            if seg_mass.max(initial=0) >= 2 ** 24:
-                raise OverflowError(
-                    f"per-fragment |value| mass {seg_mass.max():.3g} "
-                    "exceeds the f32 exact-integer range (2^24); shorten "
-                    "the epoch")
+        with obs.span("fleet.mass_check"):
+            for packet in packets:
+                if not len(packet.values):
+                    continue
+                cum = np.concatenate([[0], np.cumsum(np.abs(packet.values))])
+                seg_mass = cum[packet.offsets[1:]] - cum[packet.offsets[:-1]]
+                if seg_mass.max(initial=0) >= 2 ** 24:
+                    raise OverflowError(
+                        f"per-fragment |value| mass {seg_mass.max():.3g} "
+                        "exceeds the f32 exact-integer range (2^24); shorten "
+                        "the epoch")
 
     def _dispatch(self, params: np.ndarray,
                   packets: Sequence[FleetPacket]) -> StackGroups:
@@ -746,11 +749,12 @@ class FleetEpochRunner:
             return self._dispatch_dense(params, packets[0])
         # The cached epoch packets are shared across systems: folding
         # returns new packets and leaves them untouched.
-        packets = [fold_packet_flags(p, self.log2_te,
-                                     n_levels=self.n_levels,
-                                     level_seed=self.level_seed,
-                                     mitigation=self.mitigation)
-                   for p in packets]
+        with obs.span("fleet.fold_flags"):
+            packets = [fold_packet_flags(p, self.log2_te,
+                                         n_levels=self.n_levels,
+                                         level_seed=self.level_seed,
+                                         mitigation=self.mitigation)
+                       for p in packets]
         return dispatch_ragged_grouped(
             params, packets, log2_te=self.log2_te,
             signed=self.kind in ("cs", "um"), blk=self.blk,
@@ -786,8 +790,9 @@ class FleetEpochRunner:
                 lo, hi = torch.aminmax(c)
                 by_dev.setdefault(c.device, []).append(torch.maximum(hi, -lo))
         if by_dev:
-            check_output_peak(max(float(torch.stack(p).max())
-                                  for p in by_dev.values()))
+            with obs.span("fleet.peak.wait"):
+                check_output_peak(max(float(torch.stack(p).max())
+                                      for p in by_dev.values()))
 
     def _register_window(self, epoch0: int, params_by_epoch: List[np.ndarray],
                          groups: StackGroups, shape: Tuple[int, ...]
@@ -804,12 +809,15 @@ class FleetEpochRunner:
         computed on the device group by group: ``(E, n_frags)``."""
         L = self.n_levels
         pebs = np.zeros((e_count, len(self.frag_order)))
-        for rows, counters in groups:
-            frag = rows[::L] // L        # level-0 row of each fragment
-            for e in range(e_count):
-                pebs[e, frag] = equalize.peb_fleet_device(
-                    counters[e, ::L], n_arr[frag], self.widths[frag],
-                    self.kind).cpu().numpy()
+        with obs.span("fleet.pebs"):
+            for rows, counters in groups:
+                frag = rows[::L] // L        # level-0 row of each fragment
+                for e in range(e_count):
+                    peb = equalize.peb_fleet_device(
+                        counters[e, ::L], n_arr[frag], self.widths[frag],
+                        self.kind)
+                    with obs.span("fleet.pebs.wait"):
+                        pebs[e, frag] = peb.cpu().numpy()
         return pebs
 
     def refresh_widths(self) -> None:
@@ -936,9 +944,10 @@ class FleetEpochRunner:
         n_frags = len(self.frag_order)
         L = self.n_levels
         rows_per_epoch = n_frags * L
-        params_by_epoch = [build_params(self.fragments, epoch0 + e, ns,
-                                        self.frag_order)
-                           for e in range(e_count)]
+        with obs.span("fleet.build_params"):
+            params_by_epoch = [build_params(self.fragments, epoch0 + e, ns,
+                                            self.frag_order)
+                               for e in range(e_count)]
         params = np.concatenate(params_by_epoch)
         n_arr = params[:rows_per_epoch:L, FK.PARAM_N_SUB].astype(np.int64)
         groups = self._dispatch(params, packets)
@@ -1226,31 +1235,34 @@ class FleetEpochRunner:
 
         keys = np.asarray(keys, np.uint32)
         epochs = list(epochs)
-        if failures == "recover":
-            self.recover(epochs)
-            failures = "mask"
-        col = {e: i for i, e in enumerate(epochs)}
-        n_rows = len(self.frag_order) * self.n_levels
-        # (G, E, R): the rows each group's keys merge in each epoch
-        table = np.zeros((len(groups), len(epochs), n_rows), bool)
-        scales = np.ones(len(groups))
-        for g, (path, _) in enumerate(groups):
-            base = self._row_sel(path, level)
-            es, sel_by_e, scales[g] = self._liveness_sels(epochs, base,
-                                                          failures)
-            for e in es:
-                table[g, col[e]] = (sel_by_e[e] if sel_by_e is not None
-                                    else True if base is None else base)
-            if failures != "oblivious" and not table[g].any():
-                raise ValueError(f"window query: path {path} selects no "
-                                 "row of the fleet")
-        order = np.concatenate([np.asarray(i, np.int64) for _, i in groups]
-                               or [np.zeros(0, np.int64)])
-        gid = np.repeat(np.arange(len(groups)), [len(i) for _, i in groups])
-        ks = keys[order]
-        est = np.zeros(len(ks))
-        device_groups, host_epochs = self._route_epochs(
-            [e for e in epochs if table[:, col[e]].any()])
+        with obs.span("fleet.liveness"):
+            if failures == "recover":
+                self.recover(epochs)
+                failures = "mask"
+            col = {e: i for i, e in enumerate(epochs)}
+            n_rows = len(self.frag_order) * self.n_levels
+            # (G, E, R): the rows each group's keys merge in each epoch
+            table = np.zeros((len(groups), len(epochs), n_rows), bool)
+            scales = np.ones(len(groups))
+            for g, (path, _) in enumerate(groups):
+                base = self._row_sel(path, level)
+                es, sel_by_e, scales[g] = self._liveness_sels(epochs, base,
+                                                              failures)
+                for e in es:
+                    table[g, col[e]] = (sel_by_e[e] if sel_by_e is not None
+                                        else True if base is None else base)
+                if failures != "oblivious" and not table[g].any():
+                    raise ValueError(f"window query: path {path} selects "
+                                     "no row of the fleet")
+            order = np.concatenate([np.asarray(i, np.int64)
+                                    for _, i in groups]
+                                   or [np.zeros(0, np.int64)])
+            gid = np.repeat(np.arange(len(groups)),
+                            [len(i) for _, i in groups])
+            ks = keys[order]
+            est = np.zeros(len(ks))
+            device_groups, host_epochs = self._route_epochs(
+                [e for e in epochs if table[:, col[e]].any()])
         for stack, es in device_groups:
             sel = table[:, [col[e] for e in es]]
             params = [self._params_log[e] for e in es]
@@ -1297,16 +1309,18 @@ class FleetEpochRunner:
                              f"this one is {self.kind!r}")
         keys = np.asarray(keys, np.uint32)
         L = self.n_levels
-        frag_sel = None
-        if path is not None:
-            on_path = set(path)
-            frag_sel = np.array([sw in on_path for sw in self.frag_order])
-        # liveness in row space, projected back to fragments for the
-        # device: a fragment's level rows are all live or all masked
-        row_base = None if frag_sel is None else np.repeat(frag_sel, L)
-        epochs, row_sel_by_e, scale = self._liveness_sels(epochs, row_base,
-                                                          failures)
-        device_groups, host_epochs = self._route_epochs(epochs)
+        with obs.span("fleet.liveness"):
+            frag_sel = None
+            if path is not None:
+                on_path = set(path)
+                frag_sel = np.array([sw in on_path
+                                     for sw in self.frag_order])
+            # liveness in row space, projected back to fragments for the
+            # device: a fragment's level rows are all live or all masked
+            row_base = None if frag_sel is None else np.repeat(frag_sel, L)
+            epochs, row_sel_by_e, scale = self._liveness_sels(
+                epochs, row_base, failures)
+            device_groups, host_epochs = self._route_epochs(epochs)
         out = np.zeros((L, len(keys)))
         for groups, es in device_groups:
             sel = frag_sel if row_sel_by_e is None else \

@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..kernels.sketch_update import fleet as FK
 from . import hashing as H
 from .fragment import EpochRecords, level_seed_mix
@@ -152,10 +153,11 @@ def path_groups(paths: Sequence[Sequence[int]]) -> Dict[Tuple[int, ...],
     """The indices of ``paths`` grouped by path, in the order of each
     path's first appearance: the groups ``query_flows`` and
     ``query_entropy`` query, in the order they meet them."""
-    groups: Dict[Tuple[int, ...], List[int]] = {}
-    for i, p in enumerate(paths):
-        groups.setdefault(tuple(p), []).append(i)
-    return {p: np.asarray(i) for p, i in groups.items()}
+    with obs.span("query.path_groups"):
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for i, p in enumerate(paths):
+            groups.setdefault(tuple(p), []).append(i)
+        return {p: np.asarray(i) for p, i in groups.items()}
 
 
 def window_observability(records_by_epoch: Sequence[Sequence],

@@ -53,7 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ... import sanitize
+from ... import obs, sanitize
 from ...core.hashing import hash_mod_torch, hash_pow2_torch, hash_sign_torch
 from ...device import resolve_device
 from ..sketch_update.fleet import (PARAM_COL_SEED, PARAM_MIT, PARAM_N_SUB,
@@ -168,41 +168,44 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
 
     Returns the (K,) float64 window estimates.
     """
-    keys = np.asarray(keys, dtype=np.uint32)
-    groups = ([(np.arange(stack.shape[1]), stack)]
-              if isinstance(stack, torch.Tensor) else list(stack))
-    params, ns, widths = _prep_window_params(groups, params_by_epoch)
-    e_count, n_rows = params.shape[:2]
-    if key_group is not None:
-        key_group = np.asarray(key_group, np.int64)
-        frag_sel = np.asarray(frag_sel, bool)
-        if frag_sel.shape[1:] != (e_count, n_rows) \
-                or len(key_group) != len(keys):
-            raise ValueError(f"frag_sel {frag_sel.shape} and key_group "
-                             f"{key_group.shape} do not fit {e_count} "
-                             f"epochs of {n_rows} rows and {len(keys)} keys")
-        need = frag_sel[np.unique(key_group)].any(axis=(0, 1))
-    else:
-        frag_sel = (np.ones(n_rows, bool) if frag_sel is None
-                    else np.asarray(frag_sel, bool))
-        sel2 = np.atleast_2d(frag_sel)
-        if not sel2.any(axis=1).all():
-            bad = np.flatnonzero(~sel2.any(axis=1))
-            raise ValueError(
-                "fleet_window_query_device: no on-path fragment selected "
-                f"(epoch offsets {bad.tolist()} of {len(params_by_epoch)}) "
-                "— an all-masked merge has no survivor")
-        need = sel2.any(axis=0)
-    if len(keys) == 0:
-        return np.zeros(0)
-    # the merge runs on the first group's device: under a mesh, shard 0's
-    # groups come first, on the mesh's first device
-    dev = groups[0][1].device
-    staged = _stage_groups(groups, params, ns, widths, keys, need, dev,
-                           mitigate=bool(single_hop))
-    sel = _put(frag_sel, dev, torch.bool)
-    kg = None if key_group is None else _put(key_group, dev)
-    with sanitize.transfer_guard():
+    with obs.span("query.stage"):
+        keys = np.asarray(keys, dtype=np.uint32)
+        groups = ([(np.arange(stack.shape[1]), stack)]
+                  if isinstance(stack, torch.Tensor) else list(stack))
+        params, ns, widths = _prep_window_params(groups, params_by_epoch)
+        e_count, n_rows = params.shape[:2]
+        if key_group is not None:
+            key_group = np.asarray(key_group, np.int64)
+            frag_sel = np.asarray(frag_sel, bool)
+            if frag_sel.shape[1:] != (e_count, n_rows) \
+                    or len(key_group) != len(keys):
+                raise ValueError(f"frag_sel {frag_sel.shape} and key_group "
+                                 f"{key_group.shape} do not fit {e_count} "
+                                 f"epochs of {n_rows} rows and {len(keys)} "
+                                 "keys")
+            need = frag_sel[np.unique(key_group)].any(axis=(0, 1))
+        else:
+            frag_sel = (np.ones(n_rows, bool) if frag_sel is None
+                        else np.asarray(frag_sel, bool))
+            sel2 = np.atleast_2d(frag_sel)
+            if not sel2.any(axis=1).all():
+                bad = np.flatnonzero(~sel2.any(axis=1))
+                raise ValueError(
+                    "fleet_window_query_device: no on-path fragment selected "
+                    f"(epoch offsets {bad.tolist()} of "
+                    f"{len(params_by_epoch)}) — an all-masked merge has no "
+                    "survivor")
+            need = sel2.any(axis=0)
+        if len(keys) == 0:
+            return np.zeros(0)
+        # the merge runs on the first group's device: under a mesh, shard 0's
+        # groups come first, on the mesh's first device
+        dev = groups[0][1].device
+        staged = _stage_groups(groups, params, ns, widths, keys, need, dev,
+                               mitigate=bool(single_hop))
+        sel = _put(frag_sel, dev, torch.bool)
+        kg = None if key_group is None else _put(key_group, dev)
+    with obs.span("query.gather"), sanitize.transfer_guard():
         raw = _gather_groups(staged, e_count, n_rows, len(keys), dev,
                              signed=kind in ("cs", "um"))
         if kg is not None:
@@ -210,12 +213,16 @@ def fleet_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
         est = _masked_merge(raw, sel, kind=kind).to(torch.float64).sum(
             dim=0)
     # (K,) estimates: the only counter-derived bytes that leave the device
-    return est.cpu().numpy()
+    with obs.span("query.estimates.wait"):
+        return est.cpu().numpy()
 
 
 def _put(a, dev, dtype=torch.int64) -> torch.Tensor:
-    """A host array on ``dev`` as ``dtype`` (an upload: before the guard)."""
-    return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    """A host array on ``dev`` as ``dtype`` (an upload: before the guard),
+    its bytes counted on the open span."""
+    t = torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    obs.add("bytes", t.nbytes)
+    return t
 
 
 def _all_gather_rows(part: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -301,37 +308,38 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
     something for keys with ``level_of >= l``.  No §4.4 average: the G-sum
     queries without single-hop records, as the host ``um_gsum_window``.
     """
-    keys = np.asarray(keys, dtype=np.uint32)
-    groups = ([(np.arange(stack.shape[1]), stack)]
-              if isinstance(stack, torch.Tensor) else list(stack))
-    params, ns, widths = _prep_window_params(groups, params_by_epoch)
-    e_count, n_rows = params.shape[:2]
-    if n_levels < 1 or n_rows % n_levels:
-        raise ValueError(f"{n_rows} rows are not whole fragments of "
-                         f"{n_levels} levels")
-    n_frags = n_rows // n_levels
-    frag_sel = (np.ones(n_frags, bool) if frag_sel is None
-                else np.asarray(frag_sel, bool))
-    sel2 = np.atleast_2d(frag_sel)
-    if sel2.shape[-1] != n_frags or sel2.shape[0] not in (1, e_count):
-        raise ValueError(f"frag_sel {frag_sel.shape} is not ({n_frags},) "
-                         f"or ({e_count}, {n_frags})")
-    if not sel2.any(axis=1).all():
-        bad = np.flatnonzero(~sel2.any(axis=1))
-        raise ValueError(
-            "um_window_query_device: no on-path fragment selected (epoch "
-            f"offsets {bad.tolist()} of {e_count}) — an all-masked merge "
-            "has no survivor")
-    if len(keys) == 0:
-        return np.zeros((n_levels, 0))
-    dev = groups[0][1].device   # shard 0's, as above
-    staged = _stage_groups(groups, params, ns, widths, keys,
-                           np.repeat(sel2.any(axis=0), n_levels), dev,
-                           mitigate=False)
-    if frag_sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout below
-        frag_sel = np.repeat(frag_sel, n_levels, axis=0)
-    sel = _put(frag_sel, dev, torch.bool)
-    with sanitize.transfer_guard():
+    with obs.span("query.stage"):
+        keys = np.asarray(keys, dtype=np.uint32)
+        groups = ([(np.arange(stack.shape[1]), stack)]
+                  if isinstance(stack, torch.Tensor) else list(stack))
+        params, ns, widths = _prep_window_params(groups, params_by_epoch)
+        e_count, n_rows = params.shape[:2]
+        if n_levels < 1 or n_rows % n_levels:
+            raise ValueError(f"{n_rows} rows are not whole fragments of "
+                             f"{n_levels} levels")
+        n_frags = n_rows // n_levels
+        frag_sel = (np.ones(n_frags, bool) if frag_sel is None
+                    else np.asarray(frag_sel, bool))
+        sel2 = np.atleast_2d(frag_sel)
+        if sel2.shape[-1] != n_frags or sel2.shape[0] not in (1, e_count):
+            raise ValueError(f"frag_sel {frag_sel.shape} is not ({n_frags},) "
+                             f"or ({e_count}, {n_frags})")
+        if not sel2.any(axis=1).all():
+            bad = np.flatnonzero(~sel2.any(axis=1))
+            raise ValueError(
+                "um_window_query_device: no on-path fragment selected "
+                f"(epoch offsets {bad.tolist()} of {e_count}) — an "
+                "all-masked merge has no survivor")
+        if len(keys) == 0:
+            return np.zeros((n_levels, 0))
+        dev = groups[0][1].device   # shard 0's, as above
+        staged = _stage_groups(groups, params, ns, widths, keys,
+                               np.repeat(sel2.any(axis=0), n_levels), dev,
+                               mitigate=False)
+        if frag_sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout below
+            frag_sel = np.repeat(frag_sel, n_levels, axis=0)
+        sel = _put(frag_sel, dev, torch.bool)
+    with obs.span("query.gather"), sanitize.transfer_guard():
         raw = _gather_groups(staged, e_count, n_rows, len(keys), dev,
                              signed=True)
         raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
@@ -340,7 +348,8 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
         est = merged.reshape(e_count, n_levels, -1).to(torch.float64).sum(
             dim=0)
     # (L, K) estimates: the only counter-derived bytes that leave the device
-    return est.cpu().numpy()
+    with obs.span("query.estimates.wait"):
+        return est.cpu().numpy()
 
 
 def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
@@ -356,28 +365,30 @@ def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
     torch callable (``core.disketch._g_entropy``).  Accumulates in f32 as
     the reference's device G-sum does: expect ~1e-5 relative agreement
     with the float64 host combine, and the same keys selected."""
-    if isinstance(ests, torch.Tensor):
-        est_all, dev = ests.to(torch.float32), ests.device
-    else:
-        dev = resolve_device(device)
-        est_all = torch.as_tensor(np.asarray(ests, np.float32), device=dev)
-    lv = torch.as_tensor(np.asarray(lvl, np.int64), device=dev)
-    n_levels, n_keys = est_all.shape
-    k = min(int(k_heavy), n_keys)
-    neg_inf = float("-inf")
-    with sanitize.transfer_guard():
-        y = torch.zeros((), dtype=torch.float32, device=dev)
-        for l in range(n_levels - 1, -1, -1):
-            est = torch.where(lv >= l, torch.clamp_min(est_all[l], 1.0),
-                              neg_inf)
-            idx = torch.sort(-est, stable=True).indices[:k]
-            vals = est[idx]
-            valid = vals > neg_inf
-            gv = torch.where(valid, g(torch.where(valid, vals, 1.0)), 0.0)
-            if l == n_levels - 1:
-                y = gv.sum()
-            else:
-                in_next = ((lv[idx] >= l + 1) & valid).to(torch.float32)
-                y = 2.0 * y + ((1.0 - 2.0 * in_next) * gv).sum()
-    # one scalar: the only counter-derived value that leaves the device
-    return float(y)
+    with obs.span("query.gsum"):
+        if isinstance(ests, torch.Tensor):
+            est_all, dev = ests.to(torch.float32), ests.device
+        else:
+            dev = resolve_device(device)
+            est_all = torch.as_tensor(np.asarray(ests, np.float32), device=dev)
+        lv = torch.as_tensor(np.asarray(lvl, np.int64), device=dev)
+        n_levels, n_keys = est_all.shape
+        k = min(int(k_heavy), n_keys)
+        neg_inf = float("-inf")
+        with sanitize.transfer_guard():
+            y = torch.zeros((), dtype=torch.float32, device=dev)
+            for l in range(n_levels - 1, -1, -1):
+                est = torch.where(lv >= l, torch.clamp_min(est_all[l], 1.0),
+                                  neg_inf)
+                idx = torch.sort(-est, stable=True).indices[:k]
+                vals = est[idx]
+                valid = vals > neg_inf
+                gv = torch.where(valid, g(torch.where(valid, vals, 1.0)), 0.0)
+                if l == n_levels - 1:
+                    y = gv.sum()
+                else:
+                    in_next = ((lv[idx] >= l + 1) & valid).to(torch.float32)
+                    y = 2.0 * y + ((1.0 - 2.0 * in_next) * gv).sum()
+        # one scalar: the only counter-derived value that leaves the device
+        with obs.span("query.gsum.wait"):
+            return float(y)

@@ -34,6 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ... import obs
 from .kernel import check_launch, kernel_lib, pad_to
 from .ref import row_contrib
 
@@ -275,9 +276,14 @@ def fleet_update_ragged(keys, vals, ts, params, block_frag, *,
     _validate(params_h, bf_h, n_packets, n_sub_max=n_sub_max,
               width_max=width_max, log2_te=log2_te, blk=blk,
               n_levels=n_levels)
-    keys, vals, ts = packet_tensors(keys, vals, ts, dev, ndim=1)
-    params = _as_tensor(params, torch.int32, np.int32, dev)
-    block_frag = _as_tensor(block_frag, torch.int32, np.int32, dev)
+    host = [not isinstance(x, torch.Tensor)
+            for x in (keys, vals, ts, params, block_frag)]
+    with obs.span("fleet.upload"):
+        keys, vals, ts = packet_tensors(keys, vals, ts, dev, ndim=1)
+        params = _as_tensor(params, torch.int32, np.int32, dev)
+        block_frag = _as_tensor(block_frag, torch.int32, np.int32, dev)
+        obs.add("bytes", sum(t.nbytes for t, h in zip(
+            (keys, vals, ts, params, block_frag), host) if h))
     _check_on(dev, params=params, block_frag=block_frag)
     kw = dict(n_sub_max=n_sub_max, width_max=width_max, log2_te=log2_te,
               signed=signed, blk=blk, n_levels=n_levels,
