@@ -5,7 +5,8 @@
 
 It builds every CUDA kernel of the port from the sources in this checkout
 (B1 ragged fleet update, B2 single-fragment update, B3 dense fleet
-update), holds each against its plain PyTorch version on the card, also
+update, and the CSR scatter that lays out B1's stream on the card), holds
+each against its plain PyTorch version on the card, also
 on timed stress cases (a heavy hitter beside uniform keys, a 10^6-packet
 row, fractional values; an n = 256 group for B1 and B3; a UnivMon level
 row and a §4.4 row of 2^20 packets for B2), then
@@ -14,9 +15,11 @@ full-scale setting:
 
 * the fleet window path, cs and cms: ``DiSketchSystem`` +
   ``Replayer.run(system, window=8)`` + ``query_flows(merge="fragment")``
-  on the device (B1); then one record of window 8 is touched, which copies
-  that window to the host as its row groups, and queried with the default
-  subepoch merge;
+  on the device (B1, its streams laid out by the CSR scatter, whose
+  launches are counted too; window 8's staging and scatter held group by
+  group to the plain scatter and to ``pack_csr``, and timed); then one
+  record of window 8 is touched, which copies that window to the host as
+  its row groups, and queried with the default subepoch merge;
 * the per-epoch path, cs and cms: ``calibrate_rho_target``, then
   ``DiSketchSystem`` + ``Replayer.run(system)`` epoch by epoch with the
   default ragged layout (B1) and with ``layout="dense"`` (B3), the
@@ -951,15 +954,11 @@ def kernel_phase_dense(dev) -> float:
     return worst
 
 
-def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
-    """The grouped launches of the ``n_epochs`` epochs from ``e0`` (a
-    window, or one epoch of the per-epoch path) exactly as the fleet
-    runner makes them: ``[(args, kw)]`` per distinct n_sub (of each shard,
-    shard by shard, on a mesh), the segments of the switches dead in an
-    epoch (``dead_at``: {epoch: switches}) masked to value 0."""
-    from repro_torch.core.fleet import (fold_packet_flags,
-                                        mask_fragment_values, pack_csr)
-    from repro_torch.kernels.sketch_update import fleet as FK
+def _window_packets(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
+    """The epochs of the window from ``e0``, their parameter rows and their
+    folded ``FleetPacket``s, as the fleet runner makes them (the segments
+    of the switches dead in an epoch masked to value 0)."""
+    from repro_torch.core.fleet import fold_packet_flags, mask_fragment_values
 
     es = [e for e in range(e0, e0 + n_epochs) if e in fleet._params_log]
     params = np.concatenate([fleet._params_log[e] for e in es])
@@ -969,6 +968,88 @@ def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
         sorted(pos[sw] for sw in (dead_at or {}).get(e, ()))),
         fleet.log2_te, n_levels=fleet.n_levels, level_seed=fleet.level_seed,
         mitigation=fleet.mitigation) for e in es]
+    return es, params, packets
+
+
+def csr_scatter_window(fleet, rep, e0, dev, groups, timed=False):
+    """The CSR scatter at window ``e0``'s row groups (a fleet on one card),
+    staged as ``core.fleet.csr_streams`` stages them: the window's packets
+    (``stage_packets``, page-locked) and each n_sub group's tables
+    (``csr_row_tables``) uploaded, then each group's stream from
+    ``FK.csr_scatter`` and from its plain version ``FK.csr_scatter_ref``
+    on the same device tensors, equal (``torch.equal``), and equal to the
+    ``pack_csr`` stream of the same group in ``groups`` (``_window_groups``).
+
+    Returns ``(max_abs_err, timing)``; ``timing`` (None unless ``timed``)
+    as ``kernel_timing``'s: the eager ``ms`` and the ``device_ms`` of the
+    window's scatter launches, the plain version's ``plain_ms``, and
+    ``bound_ms`` for the bytes the scatter must move at HBM bandwidth (12 B
+    read per live packet, 12 B written per slot, and its tables); besides,
+    ``upload_ms``, the page-locked copy of the staging to the card (CUDA
+    events), and its ``upload_mb``."""
+    import torch
+
+    from repro_torch.core.fleet import csr_row_tables, stage_packets
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    assert fleet._shard_frag_bounds is None, "one card's groups only"
+    _, params, packets = _window_packets(fleet, rep, e0)
+    n_frags, L, blk = len(fleet.frag_order), fleet.n_levels, fleet.blk
+    nsub_f = params[:n_frags * L:L, FK.PARAM_N_SUB]
+    idxs = [np.flatnonzero(nsub_f == n) for n in np.unique(nsub_f)]
+    assert len(idxs) == len(groups), (len(idxs), len(groups))
+    staged = stage_packets(packets, pin=True)
+    d = staged.to(dev, non_blocking=True)
+    keys, vals, ts = d[0], d[1].view(torch.float32), d[2]
+    tables, err, n_bytes = [], 0.0, 0
+    for idx, (args, _) in zip(idxs, groups):
+        rows, bf = csr_row_tables(packets, idx, blk)
+        np.testing.assert_array_equal(bf, args[4])
+        tab = (torch.from_numpy(rows).to(dev),
+               torch.from_numpy(bf.astype(np.int64)).to(dev))
+        got = FK.csr_scatter(keys, vals, ts, *tab, blk=blk)
+        plain = FK.csr_scatter_ref(keys, vals, ts, *tab, blk=blk)
+        packed = _to_device(args, dev)[:3]
+        for g, want, host in zip(got, plain, packed):
+            err = max(err, float((g.double() - want.double()).abs().max()))
+            assert torch.equal(g, want), "csr_scatter != its plain version"
+            assert torch.equal(g, host), "csr_scatter != pack_csr"
+        tables.append(tab)
+        n_bytes += (12 * int(rows[1].sum()) + 12 * len(bf) * blk
+                    + rows.nbytes + 8 * len(bf))
+        del got, plain, packed
+    if not timed:
+        return err, None
+
+    def scatter(tab):
+        return FK.csr_scatter(keys, vals, ts, *tab, blk=blk)
+
+    def run():
+        for tab in tables:
+            scatter(tab)
+
+    timing = dict(
+        ms=sum(_time_ms(lambda t=t: scatter(t)) for t in tables),
+        device_ms=_graph_ms(run),
+        plain_ms=sum(_time_ms(lambda t=t: FK.csr_scatter_ref(
+            keys, vals, ts, *t, blk=blk), reps=3, warmup=1) for t in tables),
+        bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+        groups=len(tables),
+        upload_ms=_time_ms(lambda: staged.to(dev, non_blocking=True)),
+        upload_mb=staged.nbytes / 1e6)
+    return err, timing
+
+
+def _window_groups(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
+    """The grouped launches of the ``n_epochs`` epochs from ``e0`` (a
+    window, or one epoch of the per-epoch path) exactly as the fleet
+    runner makes them: ``[(args, kw)]`` per distinct n_sub (of each shard,
+    shard by shard, on a mesh), the segments of the switches dead in an
+    epoch (``dead_at``: {epoch: switches}) masked to value 0."""
+    from repro_torch.core.fleet import pack_csr
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    es, params, packets = _window_packets(fleet, rep, e0, n_epochs, dead_at)
     n_frags, L = len(fleet.frag_order), fleet.n_levels
     nsub_f = params[:n_frags * L:L, FK.PARAM_N_SUB]
     width_f = params[:n_frags * L:L, FK.PARAM_WIDTH]
@@ -1056,7 +1137,8 @@ def main_path(dev, sc):
     keys, truth, paths = sc["keys"], sc["truth"], sc["paths"]
     epochs = list(range(N_EPOCHS))
     n_windows = -(-N_EPOCHS // WINDOW)
-    result = {"launches": 0, "max_abs_err": 0.0}
+    result = {"launches": 0, "max_abs_err": 0.0, "scatter_launches": 0,
+              "scatter_err": 0.0}
     for kind in ("cs", "cms"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1066,6 +1148,7 @@ def main_path(dev, sc):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         reset_counts()
+        FK.csr_scatter.launches = 0
         h0 = time.perf_counter()
         start.record()
         rep.run(system, window=WINDOW)          # <- the window path
@@ -1074,8 +1157,12 @@ def main_path(dev, sc):
         run_s = time.perf_counter() - h0
         counts = read_counts()
         launches = counts["fleet_ragged"]
+        scatters = FK.csr_scatter.launches
         assert counts["sketch_update"] == counts["fleet_dense"] == 0, counts
+        # one card: each B1 launch's stream laid out by one scatter
+        assert scatters == launches, (scatters, launches)
         result["launches"] += launches
+        result["scatter_launches"] += scatters
         window_ms = start.elapsed_time(end) / n_windows
         expected = sum(len(np.unique(fleet._params_log[e0][:, FK.PARAM_N_SUB]))
                        for e0 in range(0, N_EPOCHS, WINDOW))
@@ -1105,6 +1192,13 @@ def main_path(dev, sc):
                 plain_host.append(plain.cpu().numpy())
             del plain
         result["max_abs_err"] = max(result["max_abs_err"], err)
+        # ... and window 8's CSR scatter against its plain version and
+        # pack_csr, on the same staging (timed for cs)
+        s_err, s_timing = csr_scatter_window(fleet, rep, e0, dev, groups,
+                                             timed=kind == "cs")
+        result["scatter_err"] = max(result["scatter_err"], s_err)
+        if s_timing:
+            result["scatter_timing"] = s_timing
 
         # queries: all 5-hop flows over the 32 epochs, on the device
         q0 = time.perf_counter()
@@ -1142,7 +1236,9 @@ def main_path(dev, sc):
                                   .tolist()))
                        for w0 in range(0, N_EPOCHS, WINDOW)]
         _log(f"main    {kind}: rho_target={RHO[kind]} launches={launches} "
-             f"(grouped launches expected {expected}) window={WINDOW} "
+             f"(grouped launches expected {expected}; CSR scatter "
+             f"launches {scatters}, window {e0}'s == plain version and "
+             f"pack_csr, max_abs_err {s_err}) window={WINDOW} "
              f"update {window_ms:.2f} ms/window (CUDA events; "
              f"{events / (window_ms * n_windows / 1e3):.4g} packet-switch "
              f"events/s; host {run_s:.2f} s total) stack {stack_bytes} B "
@@ -4429,6 +4525,11 @@ def main() -> int:
         timing = res["timing"]
         _timing_line(f"fleet_ragged one cs window ({timing['groups']} "
                      f"launches)", timing)
+        s_timing = res["scatter_timing"]
+        _timing_line(f"csr_scatter one cs window ({s_timing['groups']} "
+                     f"launches; its page-locked staging of "
+                     f"{s_timing['upload_mb']:.2f} MB uploads in "
+                     f"{s_timing['upload_ms']:.4f} ms)", s_timing)
         ep = _phase(epoch_path, dev, sc)
         ep_timing = _phase(epoch_kernel_timing, ep, dev)
         um_w = _phase(univmon_window, dev, sc)
@@ -4447,7 +4548,7 @@ def main() -> int:
         src = "src/repro_torch/kernels/sketch_update/csrc/"
         ref = "src/repro/kernels/sketch_update/"
         entries = [
-            ("fleet_ragged", "fleet.py:297",
+            ("fleet_ragged", ref + "fleet.py:297",
              res["launches"] + ep["ragged"] + um_w["launches"]
              + um_e["ragged"] + churn["ragged"] + ctrl["ragged"]
              + export + chaos["ragged"] + sharded["ragged"] + san["ragged"],
@@ -4455,16 +4556,19 @@ def main() -> int:
                  um_w["max_abs_err"], churn["max_abs_err"],
                  ctrl["max_abs_err"], chaos["max_abs_err"],
                  sharded["max_abs_err"], san["max_abs_err"]), timing),
-            ("sketch_update", "kernel.py:419", ep["loop"] + um_e["loop"],
+            ("sketch_update", ref + "kernel.py:419", ep["loop"] + um_e["loop"],
              max(worst["sketch_update"], ep["max_abs_err"],
                  um_e["max_abs_err"]), ep_timing["sketch_update"]),
-            ("fleet_dense", "fleet.py:160", ep["dense"] + churn["dense"],
+            ("fleet_dense", ref + "fleet.py:160", ep["dense"] + churn["dense"],
              max(worst["fleet_dense"], ep["max_abs_err"],
                  churn["max_abs_err"]), ep_timing["fleet_dense"]),
+            # replaces the reference's host packer, not one of its kernels
+            ("csr_scatter", "src/repro/core/fleet.py:234",
+             res["scatter_launches"], res["scatter_err"], s_timing),
         ]
         line = {"kernels": [{
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
-            "replaces": ref + replaces, "launches": launches,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": t["ms"],
             "device_ms": t.get("device_ms"), "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -2,10 +2,12 @@
 or per multi-epoch *window* (port of ``repro/core/fleet.py``).
 
 Every switch's epoch stream is packed into one flat blk-aligned CSR
-stream (``pack_csr``), and all (epoch, fragment[, level]) rows are updated
-by ``fleet_update_ragged`` — one launch per distinct subepoch count
-(``dispatch_ragged_grouped``).  The counters stay on the device: the
-overflow peak and the §4.2 PEBs are computed there.
+stream (``pack_csr`` on the host; on a card ``csr_streams`` stages the raw
+packets once a device and a CUDA scatter lays the stream out there), and all
+(epoch, fragment[, level]) rows are updated by ``fleet_update_ragged`` —
+one launch per distinct subepoch count (``dispatch_ragged_grouped``).
+The counters stay on the device: the overflow peak and the §4.2 PEBs are
+computed there.
 
 * ``run_epoch`` (per-epoch control, the paper's own loop) dispatches one
   epoch and copies only each fragment's live ``[:n, :width]`` block to the
@@ -236,14 +238,10 @@ def pack_csr(packets: Sequence[FleetPacket], blk: int = 256,
     """
     if not packets:
         raise ValueError("pack_csr needs at least one packet")
-    n_rows = sum(p.n_frags for p in packets)
     lens = (np.concatenate([p.seg_lengths() for p in packets])
             .astype(np.int64))
-    nblk = np.maximum(1, -(-lens // blk))
-    row_blk_off = np.concatenate([[0], np.cumsum(nblk)])
-    nb_live = int(row_blk_off[-1])
-    nb = _bucket_blocks(nb_live)
-    p_tot = nb * blk
+    row_blk_off, block_frag = _csr_layout(lens, blk)
+    p_tot = len(block_frag) * blk
     keys = np.zeros(p_tot, np.uint32)
     vals = np.zeros(p_tot, np.float32)
     ts = np.zeros(p_tot, np.uint32)
@@ -257,10 +255,113 @@ def pack_csr(packets: Sequence[FleetPacket], blk: int = 256,
     keys[dst] = src_keys
     vals[dst] = src_vals
     ts[dst] = src_ts
-    block_frag = np.full(nb, max(n_rows - 1, 0), np.int32)
+    return keys, vals, ts, block_frag
+
+
+def _csr_layout(lens: np.ndarray, blk: int) -> Tuple[np.ndarray,
+                                                     np.ndarray]:
+    """Where ``pack_csr`` puts packet rows of ``lens`` packets: each row
+    padded to a ``blk`` boundary and owning at least one block.  Returns
+    ``(row_blk_off, block_frag)``: each row's first block (and the total
+    last) and the int32 block -> row map, bucket padding included."""
+    nblk = np.maximum(1, -(-lens // blk))
+    row_blk_off = np.concatenate([[0], np.cumsum(nblk)])
+    n_rows, nb_live = len(lens), int(row_blk_off[-1])
+    block_frag = np.full(_bucket_blocks(nb_live), max(n_rows - 1, 0),
+                         np.int32)
     block_frag[:nb_live] = np.repeat(np.arange(n_rows, dtype=np.int32),
                                      nblk)
-    return keys, vals, ts, block_frag
+    return row_blk_off, block_frag
+
+
+def stage_packets(packets: Sequence[FleetPacket], pin: bool = False,
+                  frags: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """E epochs' packets of fragment positions ``frags`` = ``(lo, hi)``
+    (default all) as they lie, epoch-major and fragment-major, in one
+    ``(3, P)`` int32 host tensor (page-locked with ``pin``): the keys'
+    uint32 bits, the values as float32 bits and the ts as uint32 bits,
+    cast as ``pack_csr``'s assignments cast them.  The stream that
+    ``csr_row_tables`` with the same ``frags`` indexes."""
+    lo, hi = frags or (0, packets[0].n_frags)
+    cuts = [(int(p.offsets[lo]), int(p.offsets[hi])) for p in packets]
+    buf = torch.empty((3, sum(b - a for a, b in cuts)), dtype=torch.int32,
+                      pin_memory=pin)
+    a = buf.numpy()
+    for i, (field, dtype) in enumerate((("keys", np.uint32),
+                                        ("values", np.float32),
+                                        ("ts", np.uint32))):
+        np.concatenate([getattr(p, field)[c0:c1]
+                        for p, (c0, c1) in zip(packets, cuts)],
+                       out=a[i].view(dtype), casting="unsafe")
+    return buf
+
+
+def csr_row_tables(packets: Sequence[FleetPacket], idx: np.ndarray,
+                   blk: int = 256,
+                   frags: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The layout of ``pack_csr([p.select(idx) for p in packets], blk)``
+    over the packets as ``stage_packets(packets, frags=frags)`` lays them
+    out (``idx`` within ``frags``), without copying a packet:
+    ``(rows, block_frag)``, with ``rows`` the ``(3, R)`` int64 source
+    offset, length and first block of each (epoch, fragment) packet row,
+    epoch-major, and ``block_frag`` ``pack_csr``'s own int32 block map,
+    bucket padding included."""
+    lo, hi = frags or (0, packets[0].n_frags)
+    offs = np.stack([np.asarray(p.offsets, np.int64) for p in packets])
+    sizes = offs[:, hi] - offs[:, lo]
+    base = np.concatenate([[0], np.cumsum(sizes)[:-1]]) - offs[:, lo]
+    src_off = (base[:, None] + offs[:, idx]).ravel()
+    lens = (offs[:, idx + 1] - offs[:, idx]).ravel()
+    row_blk_off, block_frag = _csr_layout(lens, blk)
+    return np.stack([src_off, lens, row_blk_off[:-1]]), block_frag
+
+
+def csr_streams(packets: Sequence[FleetPacket],
+                groups: Sequence[Tuple[torch.device, np.ndarray]],
+                blk: int = 256) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor, np.ndarray]]:
+    """B1's stream of each row group, built on the group's device.  For
+    each distinct device, the span of fragment positions its groups cover
+    (``stage_packets``) and its groups' row tables (``csr_row_tables``)
+    are copied once into host buffers, page-locked on a card, and
+    uploaded once; each group's stream is then gathered there by
+    ``csr_scatter`` (a CUDA kernel on a card), one launch a group, each a
+    ``launches`` count of its ``fleet.pack_csr`` span.
+
+    ``groups`` are ``(device, frag_idx)`` pairs.  Returns per group
+    ``(keys, vals, ts, block_frag)``: int32, float32 and int32 tensors on
+    its device holding the bits of ``pack_csr([p.select(frag_idx) for p in
+    packets], blk)``, and that call's int32 ``block_frag`` on the host."""
+    devs = [torch.device(d) for d, _ in groups]
+    out = [None] * len(groups)
+    for dev in dict.fromkeys(devs):
+        mine = [j for j, d in enumerate(devs) if d == dev]
+        span = (min(int(groups[j][1].min()) for j in mine),
+                max(int(groups[j][1].max()) for j in mine) + 1)
+        pin = dev.type == "cuda"
+        with obs.span("fleet.pack_csr"):
+            staged = stage_packets(packets, pin=pin, frags=span)
+            tabs = [csr_row_tables(packets, groups[j][1], blk, span)
+                    for j in mine]
+            parts = [x.ravel() for tab in tabs for x in tab]
+            table = torch.empty(sum(map(len, parts)), dtype=torch.int64,
+                                pin_memory=pin)
+            np.concatenate(parts, out=table.numpy())
+        with obs.span("fleet.upload"):
+            s = staged.to(dev, non_blocking=True)
+            t = table.to(dev, non_blocking=True).split(
+                [len(x) for x in parts])
+            obs.add("bytes", staged.nbytes + table.nbytes)
+        for k, j in enumerate(mine):
+            with obs.span("fleet.pack_csr"):
+                n0 = FK.csr_scatter.launches
+                keys, vals, ts = FK.csr_scatter(
+                    s[0], s[1].view(torch.float32), s[2],
+                    t[2 * k].view(3, -1), t[2 * k + 1], blk=blk)
+                obs.add("launches", FK.csr_scatter.launches - n0)
+            out[j] = (keys, vals, ts, tabs[k][1])
+    return out
 
 
 def build_params(fragments: Dict[int, FragmentConfig], epoch: int,
@@ -316,7 +417,11 @@ def dispatch_ragged_grouped(params: np.ndarray,
     ``((lo, hi), device)`` blocks of fragment positions (a device mesh's;
     default one block of every fragment on ``device``, itself ``cuda`` by
     default): a group never spans two blocks, and each block packs and
-    launches its own groups on its own device.  Returns the window's row
+    launches its own groups on its own device.  A group on a card has its
+    stream built there (``csr_streams``: each device's span of fragments
+    is staged and uploaded once a window); a group on the CPU, by
+    ``pack_csr`` of its fragments' segments on the host.  Returns the
+    window's row
     groups: ``(rows, counters)`` per group, block by block in ascending
     ``n_sub``, with ``rows`` the group's row indices within an epoch and
     ``counters`` its ``(E, R_g, n_sub_g, width_g)`` f32 output on its
@@ -336,28 +441,37 @@ def dispatch_ragged_grouped(params: np.ndarray,
                 == ref[None, :, None]).all():
             raise ValueError("grouped dispatch requires ns and widths "
                              "frozen across the window")
-    groups: StackGroups = []
+    plan = []
     for (lo, hi), dev in shards or [((0, n_frags), device)]:
         dev = resolve_device(dev)
         for n_g in np.unique(nsub_f[lo:hi]):
-            frag_idx = lo + np.flatnonzero(nsub_f[lo:hi] == n_g)
-            w_g = int(width_f[frag_idx].max())
-            # all L level rows of each group fragment — within an epoch,
-            # and epoch-major across the window, aligned with the packet
-            # rows pack_csr emits for the selected segments
-            rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
-            all_rows = (np.arange(e_count)[:, None] * n_frags * L
-                        + rows[None, :]).ravel()
-            with obs.span("fleet.pack_csr"):
+            plan.append((dev, int(n_g),
+                         lo + np.flatnonzero(nsub_f[lo:hi] == n_g)))
+    # A group on a card gets its stream built there (csr_streams: one
+    # staging and upload a device); on the CPU, pack_csr builds it.
+    on_card = [(dev, idx) for dev, _, idx in plan if dev.type == "cuda"]
+    card = iter(csr_streams(packets, on_card, blk) if on_card else ())
+    groups: StackGroups = []
+    for dev, n_g, frag_idx in plan:
+        w_g = int(width_f[frag_idx].max())
+        # all L level rows of each group fragment — within an epoch, and
+        # epoch-major across the window, aligned with the packet rows
+        # pack_csr emits for the selected segments
+        rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
+        all_rows = (np.arange(e_count)[:, None] * n_frags * L
+                    + rows[None, :]).ravel()
+        if dev.type == "cuda":
+            keys, vals, ts, block_frag = next(card)
+        else:       # launches no scatter: the span's count reads 0
+            with obs.span("fleet.pack_csr", launches=0):
                 keys, vals, ts, block_frag = pack_csr(
                     [p.select(frag_idx) for p in packets], blk)
-            out_g = FK.fleet_update_ragged(
-                keys, vals, ts, params[all_rows], block_frag,
-                n_sub_max=int(n_g), width_max=w_g, log2_te=log2_te,
-                signed=signed, blk=blk, n_levels=L,
-                with_mitigation=with_mitigation, device=dev)
-            groups.append((rows, out_g.reshape(e_count, len(rows),
-                                               int(n_g), w_g)))
+        out_g = FK.fleet_update_ragged(
+            keys, vals, ts, params[all_rows], block_frag,
+            n_sub_max=n_g, width_max=w_g, log2_te=log2_te, signed=signed,
+            blk=blk, n_levels=L, with_mitigation=with_mitigation,
+            device=dev)
+        groups.append((rows, out_g.reshape(e_count, len(rows), n_g, w_g)))
     return groups
 
 

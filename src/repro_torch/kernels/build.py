@@ -1,13 +1,14 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled on its
-own into a shared library for ``sm_90a`` (Hopper).  Builds happen on
-first use, on the machine with the card, into ``build/repro_torch/`` at
-the root of the checkout (listed in ``.gitignore``); a library's file
-name carries a digest of its source and of every header it includes
-(``#include "..."``, followed recursively), so an edited source or
-shared header is rebuilt and never mixed up with a stale library.  ``build_all`` starts one ``nvcc``
-per missing library and waits for all of them.
+Each library is one or more ``csrc/*.cu`` files with a plain C interface,
+compiled together into one shared library for ``sm_90a`` (Hopper).
+Builds happen on first use, on the machine with the card, into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``); a library's file name carries a digest of its sources
+and of every header they include (``#include "..."``, followed
+recursively), so an edited source or shared header is rebuilt and never
+mixed up with a stale library.  ``build_all`` starts one ``nvcc`` per
+missing library and waits for all of them.
 """
 from __future__ import annotations
 
@@ -20,16 +21,19 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..sanitize import note_trace
 
 _PKG = Path(__file__).resolve().parent
-#: Library name -> CUDA source, relative to this directory.
-SOURCES: Dict[str, str] = {
-    "fleet_ragged": "sketch_update/csrc/fleet_ragged.cu",
-    "sketch_update": "sketch_update/csrc/sketch_update.cu",
-    "fleet_dense": "sketch_update/csrc/fleet_dense.cu",
+#: Library name -> its CUDA sources, relative to this directory.  B1's
+#: library also holds the CSR scatter that builds B1's stream on the card,
+#: so the window path loads one library.
+SOURCES: Dict[str, Tuple[str, ...]] = {
+    "fleet_ragged": ("sketch_update/csrc/fleet_ragged.cu",
+                     "sketch_update/csrc/csr_scatter.cu"),
+    "sketch_update": ("sketch_update/csrc/sketch_update.cu",),
+    "fleet_dense": ("sketch_update/csrc/fleet_dense.cu",),
 }
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,8 +72,9 @@ def _sources(path: Path) -> List[Path]:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha1()
-    for p in _sources(_PKG / SOURCES[name]):
-        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    for src in SOURCES[name]:
+        for p in _sources(_PKG / src):
+            h.update(p.name.encode() + b"\0" + p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -87,7 +92,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(_PKG / src) for src in SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -12,7 +12,9 @@ with exact zeros outside each row's live ``[:n_sub, :width]`` block.
 the reference's dense ``(n_frags, p_max)`` rectangle instead, cs/cms only
 (the level and §4.4 terms are compiled out, as in the reference).
 ``fleet_update_loop`` is the loop-of-kernels baseline: one single-fragment
-``ops.sketch_update`` (kernel B2) per parameter row.
+``ops.sketch_update`` (kernel B2) per parameter row.  ``csr_scatter``
+(``csrc/csr_scatter.cu``, in B1's library) lays out B1's stream on the
+card from a window's staged packets.
 
 On CUDA tensors each wrapper launches its hand-written kernel (which
 replaces the TPU's Pallas kernel) and raises if the launch fails; on CPU
@@ -321,6 +323,107 @@ def _launch(keys, vals, ts, params, block_frag, *, n_sub_max, width_max,
 
 #: Kernel launches made by ``fleet_update_ragged`` (CUDA tensors only).
 fleet_update_ragged.launches = 0
+
+
+# --- B1's stream on the card (the CSR scatter) -----------------------------
+
+
+def csr_scatter_ref(keys: torch.Tensor, vals: torch.Tensor, ts: torch.Tensor,
+                    rows: torch.Tensor, block_row: torch.Tensor, *,
+                    blk: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of the CSR scatter: slot ``q`` of block
+    ``b = q // blk`` holds staged packet ``src_off[r] + s`` of its row
+    ``r = block_row[b]`` while ``s = q - first_blk[r] * blk`` is below
+    the row's length, and zeros after."""
+    dev = keys.device
+    n = block_row.shape[0] * blk
+    q = torch.arange(n, device=dev)
+    r = block_row[q // blk]
+    s = q - rows[2, r] * blk
+    live = s < rows[1, r]
+    src = (rows[0, r] + s)[live]
+    out = []
+    for x in (keys, vals, ts):
+        o = torch.zeros(n, dtype=x.dtype, device=dev)
+        o[live] = x[src]
+        out.append(o)
+    return tuple(out)
+
+
+def csr_scatter(keys, vals, ts, rows, block_row, *, blk: int = 256
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One row group's ``(n_blocks * blk,)`` stream for ``fleet_update_
+    ragged``, gathered from a window's staged packets
+    (``core.fleet.stage_packets``): the bits ``core.fleet.pack_csr``
+    returns for the group's fragments, padding included.
+
+    Args:
+      keys/ts: ``(P,)`` int32 tensors of the staged uint32 words.
+      vals: ``(P,)`` float32 staged values.
+      rows: ``(3, R)`` int64 source offset, length and first block of each
+        packet row (``core.fleet.csr_row_tables``).
+      block_row: ``(n_blocks,)`` int64 block -> packet-row map.
+      All on one device.  The tables are trusted as ``csr_row_tables``
+      builds them: reading them back here would make the host wait.
+
+    Returns int32 keys, float32 values and int32 ts of ``n_blocks * blk``
+    slots on that device.  CUDA tensors launch the scatter kernel
+    (``csrc/csr_scatter.cu``, in B1's library) or raise; CPU tensors run
+    ``csr_scatter_ref``.
+    """
+    dev = input_device(None, keys, vals, ts, rows, block_row)
+    for name, x, dtype in (("keys", keys, torch.int32),
+                           ("vals", vals, torch.float32),
+                           ("ts", ts, torch.int32),
+                           ("rows", rows, torch.int64),
+                           ("block_row", block_row, torch.int64)):
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    _check_on(dev, keys=keys, vals=vals, ts=ts, rows=rows,
+              block_row=block_row)
+    if keys.ndim != 1 or vals.shape != keys.shape or ts.shape != keys.shape:
+        raise ValueError("keys, vals and ts must be 1-d and of one shape")
+    if rows.ndim != 2 or rows.shape[0] != 3 or block_row.ndim != 1:
+        raise ValueError("rows must be (3, n_rows) and block_row 1-d")
+    if blk < 1 or blk % SLOTS_PER_THREAD:
+        raise ValueError(f"blk={blk} is not a positive multiple of "
+                         f"{SLOTS_PER_THREAD} (one 16-byte store)")
+    if dev.type == "cpu":
+        return csr_scatter_ref(keys, vals, ts, rows, block_row, blk=blk)
+    return _launch_scatter(*(x.contiguous() for x in
+                             (keys, vals, ts, rows, block_row)), blk=blk)
+
+
+_SCATTER_ARGS = [_VP] * 10 + [_CLL] + [_CI] * 2 + [_VP]
+
+
+def _launch_scatter(keys, vals, ts, rows, block_row, *, blk):
+    dev = keys.device
+    n = block_row.shape[0] * blk
+    outs = (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    n_quads = n // SLOTS_PER_THREAD
+    grid = _grid(-(-n_quads // CTA_THREADS))
+    if grid == 0:
+        return outs
+    with torch.cuda.device(dev):
+        lib = kernel_lib("fleet_ragged", *_SCATTER_ARGS,
+                         symbol="csr_scatter_launch")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.csr_scatter_launch(
+            keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
+            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+            block_row.data_ptr(), *(o.data_ptr() for o in outs), n_quads,
+            grid, blk, stream)
+    check_launch(err, "csr_scatter")
+    csr_scatter.launches += 1
+    return outs
+
+
+#: Kernel launches made by ``csr_scatter`` (CUDA tensors only).
+csr_scatter.launches = 0
 
 
 # --- dense rectangle (kernel B3) -------------------------------------------

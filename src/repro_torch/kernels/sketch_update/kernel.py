@@ -11,6 +11,7 @@ itself (``fleet.ragged_geometry``, ``fleet.dense_geometry``,
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -43,15 +44,17 @@ def check_output_peak(peak: float) -> None:
 # --- what the CUDA wrappers share ------------------------------------------
 
 
-def kernel_lib(name: str, *launch_argtypes) -> ctypes.CDLL:
+def kernel_lib(name: str, *launch_argtypes,
+               symbol: Optional[str] = None) -> ctypes.CDLL:
     """Library ``name`` (``kernels.build.SOURCES``), built on first use,
-    with ``<name>_launch`` declared to take ``launch_argtypes`` and return
-    the CUDA error code.  ``build.load`` is the one cache, so clearing it
-    makes the next launch load the library again."""
+    with its launch function ``symbol`` (default ``<name>_launch``)
+    declared to take ``launch_argtypes`` and return the CUDA error code.
+    ``build.load`` is the one cache, so clearing it makes the next launch
+    load the library again."""
     from ..build import load
 
     lib = load(name)
-    launch = getattr(lib, f"{name}_launch")
+    launch = getattr(lib, symbol or f"{name}_launch")
     if launch.argtypes is None:         # first use of this library object
         launch.argtypes = list(launch_argtypes)
         launch.restype = ctypes.c_int

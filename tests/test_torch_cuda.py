@@ -629,3 +629,131 @@ def test_sharded_window_on_card(cuda_device, spread):
         for sw in mems:
             assert np.array_equal(one.fleet.cell_counters(e, sw),
                                   fleet.cell_counters(e, sw))
+
+
+# -- B1's stream built on the card (csr_streams, the CSR scatter) ----------
+
+STAGED = [("cs", 1, False, ()), ("cms", 1, False, ()), ("um", 4, False, ()),
+          ("cs", 1, True, ()), ("um", 4, True, ()), ("cs", 1, False, (0, 3)),
+          ("um", 4, True, (2,))]
+
+
+def _staged_window(kind, n_levels, mitigation, masked, epochs, log2_te=12):
+    """Folded, masked ``FleetPacket``s of a small fleet: skewed segments,
+    an empty switch (3) and one with no stream (11); ``(packets, groups)``
+    with ``groups`` each n_sub group's fragment positions."""
+    from repro_torch.core import fleet as F
+    from repro_torch.core.disketch import SwitchStream
+
+    lens = {0: 3000, 3: 0, 5: 500, 9: 9000}
+    ns = {0: 1, 3: 2, 5: 8, 9: 2, 11: 4}
+    order = tuple(sorted(ns))
+    packets = []
+    for e in epochs:
+        rng = np.random.default_rng(e)
+        streams = {}
+        for sw, n in lens.items():
+            keys = (rng.zipf(1.3, n) % 2000).astype(np.uint32) \
+                * np.uint32(2654435761)
+            streams[sw] = SwitchStream(
+                keys, rng.integers(1, 4, n).astype(np.int64),
+                rng.integers(0, 1 << log2_te, n) + (e << log2_te),
+                rng.random(n) < 0.3)
+        packets.append(F.fold_packet_flags(
+            F.mask_fragment_values(F.pack_streams(streams, order), masked),
+            log2_te, n_levels=n_levels, level_seed=7777,
+            mitigation=mitigation))
+    nsub = np.array([ns[sw] for sw in order])
+    return packets, [np.flatnonzero(nsub == n) for n in np.unique(nsub)]
+
+
+@pytest.mark.parametrize("blk", [8, 256])
+@pytest.mark.parametrize("case", STAGED, ids=[
+    f"{k}{n}{'-mit' if m else ''}{'-masked' if d else ''}"
+    for k, n, m, d in STAGED])
+def test_csr_scatter_equals_pack_csr_on_card(cuda_device, case, blk):
+    """Each row group's stream that the CSR scatter lays out on the card
+    holds ``pack_csr``'s bits, padding and bucket blocks included, for two
+    windows staged back to back with no sync between them (the second
+    may reuse the first's page-locked buffers); one launch a group, each
+    a ``launches`` count of its ``fleet.pack_csr`` span."""
+    from repro_torch import obs
+    from repro_torch.core import fleet as F
+
+    windows = [_staged_window(*case, epochs) for epochs in ((5, 6, 7),
+                                                           (8, 9))]
+    obs.clear()
+    before = FK.csr_scatter.launches
+    got = [F.csr_streams(packets, [(cuda_device, idx) for idx in idxs], blk)
+           for packets, idxs in windows]
+    assert FK.csr_scatter.launches - before == 8
+    assert sum((s.counts or {}).get("launches", 0) for s in obs.spans()
+               if s.name == "fleet.pack_csr") == 8
+    for (packets, idxs), streams in zip(windows, got):
+        for idx, (keys, vals, ts, bf) in zip(idxs, streams):
+            want = F.pack_csr([p.select(idx) for p in packets], blk)
+            np.testing.assert_array_equal(bf, want[3])
+            for t, w in zip((keys, vals, ts), want[:3]):
+                assert t.is_cuda
+                np.testing.assert_array_equal(
+                    t.cpu().numpy().view(np.uint32), w.view(np.uint32))
+
+
+def _s61_window_run(kind, dev, wl, n_windows=2):
+    """Two windows of 8 back to back (no sync between them) at the §6.1
+    memories (FatTree(4), 128 KB a switch, Gini 0.4)."""
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.simulator import Replayer
+    from repro_torch.net.traffic import gini_memories
+
+    rep = Replayer(wl, 20)
+    mems = {sw: int(m) for sw, m in enumerate(gini_memories(
+        20, 128 * 1024, 0.4, np.random.RandomState(101)))}
+    system = DiSketchSystem(mems, kind, rho_target={"cs": 15.67,
+                                                    "um": 63.31}[kind],
+                            log2_te=16, n_levels=16, device=dev)
+    for e0 in range(0, 8 * n_windows, 8):
+        system.run_window(e0, [rep.epoch_stream(e)
+                               for e in range(e0, e0 + 8)])
+    return system
+
+
+@pytest.mark.parametrize("kind", ["cs", "um"])
+def test_run_window_on_card_equals_cpu(cuda_device, kind, monkeypatch):
+    """``run_window`` on the card, whose B1 streams the CSR scatter builds
+    there, gives the counters of every cell and the Eq. 6 trajectory of
+    the CPU path (``pack_csr`` on the host) bit for bit, and its PEBs bit
+    for bit those of a card run fed ``pack_csr``'s streams (the same
+    float64 reductions on the same counters; the CPU's sum in another
+    order, so there they agree to 1e-10): the §6.1 cs trace (2 M packets,
+    32 epochs), and for UnivMon (16 levels) a lighter trace at the same
+    memories; two windows each."""
+    from repro_torch.core import fleet as F
+    from repro_torch.net.topology import FatTree
+    from repro_torch.net.traffic import gen_workload
+
+    size = (dict(n_flows=200_000, total_packets=2_000_000, n_epochs=32)
+            if kind == "cs" else
+            dict(n_flows=20_000, total_packets=200_000, n_epochs=16))
+    wl = gen_workload(FatTree(4), log2_te=16, burstiness=0.2, seed=1, **size)
+    before = FK.csr_scatter.launches
+    card = _s61_window_run(kind, cuda_device, wl)
+    assert FK.csr_scatter.launches - before >= 2
+    cpu = _s61_window_run(kind, "cpu", wl)
+    with monkeypatch.context() as m:
+        m.setattr(F, "csr_streams", lambda packets, groups, blk: [
+            F.pack_csr([p.select(idx) for p in packets], blk)
+            for _, idx in groups])
+        before = FK.csr_scatter.launches
+        host_packed = _s61_window_run(kind, cuda_device, wl)
+        assert FK.csr_scatter.launches == before
+    assert card.n_log == cpu.n_log == host_packed.n_log
+    assert card.peb_log == host_packed.peb_log
+    for got, want in zip(card.peb_log, cpu.peb_log):
+        assert got.keys() == want.keys()
+        np.testing.assert_allclose([got[sw] for sw in got],
+                                   [want[sw] for sw in got], rtol=1e-10)
+    for e in range(16):
+        for sw in range(20):
+            assert np.array_equal(card.fleet.cell_counters(e, sw),
+                                  cpu.fleet.cell_counters(e, sw)), (e, sw)

@@ -224,20 +224,22 @@ def test_dense_runner_refusals():
 
 
 def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
-    """A library is named by a digest of its source and every header it
-    includes, so editing a shared header rebuilds every library that uses
+    """A library is named by a digest of its sources and every header they
+    include, so editing a shared header rebuilds every library that uses
     it instead of loading a stale one."""
     from repro_torch.kernels import build
 
-    for name, src in build.SOURCES.items():
-        files = [p.name for p in build._sources(build._PKG / src)]
-        assert files == [src.rsplit("/", 1)[1], "sketch_hash.cuh"], name
+    for name, srcs in build.SOURCES.items():
+        files = [p.name for src in srcs
+                 for p in build._sources(build._PKG / src)]
+        assert files == [srcs[0].rsplit("/", 1)[1], "sketch_hash.cuh",
+                         *(src.rsplit("/", 1)[1] for src in srcs[1:])], name
     (tmp_path / "csrc").mkdir()
     (tmp_path / "csrc" / "a.cu").write_text('#include "h.cuh"\nint a;\n')
     (tmp_path / "csrc" / "h.cuh").write_text('#include "g.cuh"\n')
     (tmp_path / "csrc" / "g.cuh").write_text("int g;\n")
     monkeypatch.setattr(build, "_PKG", tmp_path)
-    monkeypatch.setattr(build, "SOURCES", {"a": "csrc/a.cu"})
+    monkeypatch.setattr(build, "SOURCES", {"a": ("csrc/a.cu",)})
     before = build.library_path("a")
     (tmp_path / "csrc" / "g.cuh").write_text("int g = 1;\n")
     after = build.library_path("a")

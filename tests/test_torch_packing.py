@@ -1,12 +1,16 @@
 """Parity of the port's host packer with the JAX package's (pure numpy on
 both sides): ``pack_streams``, ``fold_packet_flags``, ``pack_csr`` and
-``build_params`` must give equal arrays."""
+``build_params`` must give equal arrays; and the stream a card builds from
+one staging of the window (``csr_streams``, here with the scatter's plain
+version) must equal ``pack_csr``'s, bit for bit."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core import fleet as RF
 from repro.core.disketch import SwitchStream as RStream
 from repro.core.fragment import FragmentConfig as RCfg
+from repro_torch import obs
 from repro_torch.core import fleet as TF
 from repro_torch.core.disketch import SwitchStream as TStream
 from repro_torch.core.fragment import FragmentConfig as TCfg
@@ -85,3 +89,106 @@ def test_bucket_blocks_matches_reference(nb):
 def test_fold_is_a_no_op_without_levels_or_mitigation():
     tp = TF.pack_streams(_streams(TStream), tuple(sorted(MEMS)))
     assert TF.fold_packet_flags(tp, LOG2_TE) is tp
+
+
+# The window's stream built from one staging of the raw packets
+# (``csr_streams``: ``stage_packets``, ``csr_row_tables`` and the plain
+# ``csr_scatter_ref``; a CUDA kernel on a card) against ``pack_csr`` of each
+# row group's selected fragments.  Besides CONFIGS' skewed segments, empty
+# switch (3), missing switch (11), folded UnivMon levels and §4.4 flags:
+# masked (value-0) fragments, and at blk = 8 block counts past
+# ``_bucket_blocks``' floor, so the trailing bucket blocks are padded too.
+STAGED = [(*c, ()) for c in CONFIGS] + [("cs", 16, False, (0, 3)),
+                                         ("um", 4, True, (2,))]
+
+
+STAGED_IDS = [f"{k}{n}{'-mit' if m else ''}{'-masked' if d else ''}"
+              for k, n, m, d in STAGED]
+
+
+def _staged_packets(kind, n_levels, mitigation, masked):
+    order = tuple(sorted(MEMS))
+    L = n_levels if kind == "um" else 1
+    return [TF.fold_packet_flags(
+        TF.mask_fragment_values(
+            TF.pack_streams(_streams(TStream, e, e), order), masked),
+        LOG2_TE, n_levels=L, level_seed=7777, mitigation=mitigation)
+        for e in (5, 6, 7)]
+
+
+@pytest.mark.parametrize("kind,n_levels,mitigation,masked", STAGED,
+                         ids=STAGED_IDS)
+@pytest.mark.parametrize("blk", [8, 256])
+def test_staged_csr_streams_match_pack_csr(kind, n_levels, mitigation,
+                                          masked, blk):
+    packets = _staged_packets(kind, n_levels, mitigation, masked)
+    nsub = np.array([NS[sw] for sw in sorted(MEMS)])
+    idxs = [np.flatnonzero(nsub == n) for n in np.unique(nsub)]
+    cpu = torch.device("cpu")
+    obs.clear()
+    got = TF.csr_streams(packets, [(cpu, idx) for idx in idxs], blk)
+    assert len(got) == len(idxs) == 4
+    padded = 0
+    for idx, (keys, vals, ts, bf) in zip(idxs, got):
+        want = TF.pack_csr([p.select(idx) for p in packets], blk)
+        rows, bf_t = TF.csr_row_tables(packets, idx, blk)
+        assert rows.shape == (3, 3 * len(idx)) and rows.dtype == np.int64
+        np.testing.assert_array_equal(bf_t, want[3])
+        assert bf.dtype == want[3].dtype == np.int32
+        np.testing.assert_array_equal(bf, want[3])
+        for t, w in zip((keys, vals, ts), want[:3]):
+            assert t.dtype == (torch.float32 if w.dtype == np.float32
+                               else torch.int32)
+            np.testing.assert_array_equal(t.numpy().view(w.dtype), w)
+            np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                          w.view(np.uint32))
+        live = -(-rows[1] // blk)
+        padded += len(bf) > np.maximum(live, 1).sum() > 32
+    assert padded or blk == 256
+    names = [s.name for s in obs.spans()]
+    assert names.count("fleet.pack_csr") == 1 + len(idxs)
+    assert names.count("fleet.upload") == 1
+
+
+# A mesh's shards as ``dispatch_ragged_grouped`` forms its row groups:
+# ``((lo, hi), device)`` blocks of fragment positions.  ``cpu`` and
+# ``cpu:0`` are two devices to torch, so each stands for one card.
+MESHES = {"halves": [((0, 2), "cpu"), ((2, 5), "cpu:0")],
+          "two_shards_one_device": [((0, 2), "cpu"), ((2, 4), "cpu"),
+                                    ((4, 5), "cpu:0")]}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("kind,n_levels,mitigation,masked", STAGED,
+                         ids=STAGED_IDS)
+def test_csr_streams_send_each_device_only_its_fragments(
+        kind, n_levels, mitigation, masked, mesh):
+    """On a mesh each device is sent the packets of its own shards' span
+    of fragments and its groups' tables, once a window, so every packet
+    crosses to one device only; each group's stream is ``pack_csr``'s."""
+    packets = _staged_packets(kind, n_levels, mitigation, masked)
+    nsub = np.array([NS[sw] for sw in sorted(MEMS)])
+    groups = [(torch.device(dev), lo + np.flatnonzero(nsub[lo:hi] == n))
+              for (lo, hi), dev in MESHES[mesh]
+              for n in np.unique(nsub[lo:hi])]
+    obs.clear()
+    got = TF.csr_streams(packets, groups, 8)
+    for (_, idx), (keys, vals, ts, bf) in zip(groups, got):
+        want = TF.pack_csr([p.select(idx) for p in packets], 8)
+        np.testing.assert_array_equal(bf, want[3])
+        for t, w in zip((keys, vals, ts), want[:3]):
+            np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                          w.view(np.uint32))
+    sent = [s.counts["bytes"] for s in obs.spans() if s.name == "fleet.upload"]
+    want_sent, staged = [], 0
+    for dev in dict.fromkeys(d for d, _ in groups):
+        mine = [j for j, (d, _) in enumerate(groups) if d == dev]
+        idx = np.concatenate([groups[j][1] for j in mine])
+        lo, hi = int(idx.min()), int(idx.max()) + 1
+        n_pkts = sum(int(p.offsets[hi] - p.offsets[lo]) for p in packets)
+        n_blocks = sum(len(got[j][3]) for j in mine)
+        want_sent.append(12 * n_pkts
+                         + 8 * (3 * len(packets) * len(idx) + n_blocks))
+        staged += n_pkts
+    assert sent == want_sent and len(sent) == 2
+    assert staged == sum(len(p.keys) for p in packets)
