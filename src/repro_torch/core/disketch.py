@@ -185,23 +185,27 @@ class DiSketchSystem:
         sw = event.switch
         if sw not in self.fragments:
             raise KeyError(f"churn event for unknown switch {sw}")
-        if event.kind == "fail":
-            if sw not in self.dead:
-                self.dead.add(sw)
-                if not self.control_external:
-                    self._reequalize_survivors()
-        elif event.kind == "recover":
-            if sw in self.dead:
-                self.dead.discard(sw)
-                self.ns[sw] = 1
-        elif event.kind in ("shrink", "grow"):
-            if defer_resize:
-                self._pending_resize[sw] = (self._pending_resize.get(sw, 1.0)
-                                            * event.factor)
+        with obs.span("disketch.apply_event"):
+            if event.kind == "fail":
+                if sw not in self.dead:
+                    self.dead.add(sw)
+                    if not self.control_external:
+                        before = dict(self.ns)
+                        self._reequalize_survivors()
+                        obs.add("reequalized", sum(
+                            1 for s, n in before.items() if self.ns[s] != n))
+            elif event.kind == "recover":
+                if sw in self.dead:
+                    self.dead.discard(sw)
+                    self.ns[sw] = 1
+            elif event.kind in ("shrink", "grow"):
+                if defer_resize:
+                    self._pending_resize[sw] = (
+                        self._pending_resize.get(sw, 1.0) * event.factor)
+                else:
+                    self._apply_resize(sw, event.factor)
             else:
-                self._apply_resize(sw, event.factor)
-        else:
-            raise ValueError(f"unknown churn event kind {event.kind!r}")
+                raise ValueError(f"unknown churn event kind {event.kind!r}")
 
     def _last_pebs(self) -> Dict[int, float]:
         last: Dict[int, float] = {}

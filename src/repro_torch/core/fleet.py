@@ -979,8 +979,7 @@ class FleetEpochRunner:
                              "fleet's")
         dead_set = set(dead or ()) & set(self.frag_order)
         if dead_set:
-            packet = mask_fragment_values(
-                packet, sorted(self._frag_pos[sw] for sw in dead_set))
+            packet = self._mask_dead([packet], [dead_set])[0]
         self._check_input_mass([packet])
         L = self.n_levels
         params = build_params(self.fragments, epoch, ns, self.frag_order)
@@ -1051,9 +1050,7 @@ class FleetEpochRunner:
             raise ValueError("dead_by_epoch and lost_by_epoch need one set "
                              f"per epoch of the window ({e_count})")
         if any(dead_sets):
-            packets = [mask_fragment_values(
-                p, sorted(self._frag_pos[sw] for sw in dead))
-                for p, dead in zip(packets, dead_sets)]
+            packets = self._mask_dead(packets, dead_sets)
         self._check_input_mass(packets)
         n_frags = len(self.frag_order)
         L = self.n_levels
@@ -1073,13 +1070,19 @@ class FleetEpochRunner:
              int(self.widths.max(initial=4))))
         parity_by_epoch = None
         if self.parity_groups is not None:
-            parity_by_epoch = self._window_parity(buf, params_by_epoch[0],
-                                                  e_count)
-        for e, lost in enumerate(lost_sets):
-            for sw in lost:
-                i = self._frag_pos[sw]
-                buf.zero(e, i * L, L,
-                         *self._block_shape(params_by_epoch[0], i))
+            with obs.span("fleet.parity"):
+                parity_by_epoch = self._window_parity(
+                    buf, params_by_epoch[0], e_count)
+                obs.add("bytes", sum(p.nbytes for p in parity_by_epoch[0])
+                        * e_count)
+        if any(lost_sets):
+            with obs.span("fleet.lose",
+                          cells=sum(len(lost) for lost in lost_sets)):
+                for e, lost in enumerate(lost_sets):
+                    for sw in lost:
+                        i = self._frag_pos[sw]
+                        buf.zero(e, i * L, L,
+                                 *self._block_shape(params_by_epoch[0], i))
         # snapshot the config dict: records keep this window's widths
         frags_now = dict(self.fragments)
         recs_list = [WindowRecords(buf, e, epoch0 + e, frags_now,
@@ -1095,6 +1098,18 @@ class FleetEpochRunner:
             if parity_by_epoch is not None:
                 self._parity[epoch0 + e] = parity_by_epoch[e]
         return recs_list, pebs_list
+
+    def _mask_dead(self, packets: Sequence[FleetPacket],
+                   dead_sets: Sequence[set]) -> List[FleetPacket]:
+        """Each epoch's packets with its dead switches' segments masked
+        (``mask_fragment_values``), in a span counting the packets."""
+        out = []
+        with obs.span("fleet.mask"):
+            for p, dead in zip(packets, dead_sets):
+                pos = sorted(self._frag_pos[sw] for sw in dead)
+                out.append(mask_fragment_values(p, pos))
+                obs.add("packets", int(p.seg_lengths()[pos].sum()))
+        return out
 
     def _block_shape(self, params: np.ndarray, i: int) -> Tuple[int, int]:
         """Fragment ``i``'s live ``(n, width)`` in an epoch's table."""
@@ -1167,28 +1182,33 @@ class FleetEpochRunner:
         and for the record views.  Returns what was recovered,
         ``{epoch: [switch]}``; the other lost cells stay masked."""
         recovered: Dict[int, List[int]] = {}
+        todo = self.recoverable(epochs)
+        if not todo:
+            return recovered
         L = self.n_levels
-        for e, sws in self.recoverable(epochs).items():
-            buf, e_idx = self._window_bufs[e]
-            params = self._params_log[e]
-            patches = []
-            for sw in sws:
-                i = self._frag_pos[sw]
-                members = self.parity_groups[self._group_of[i]]
-                acc = self._parity[e][self._group_of[i]].clone()
-                for j in members:
-                    if j != i:
-                        b = buf.block(e_idx, int(j) * L, L,
-                                      *self._block_shape(params, int(j)))
-                        b = b.to(acc.device, torch.int32).reshape(-1)
-                        acc[:b.numel()] ^= b
-                n, w = self._block_shape(params, i)
-                patches.append((i, acc[:L * n * w].reshape(L, n, w)))
-            for i, counters in patches:
-                buf.patch(e_idx, i * L, counters)
-                self._row_live[e][i * L:(i + 1) * L] = True
-                self._lost[e].discard(i)
-                recovered.setdefault(e, []).append(self.frag_order[i])
+        with obs.span("fleet.recover"):
+            for e, sws in todo.items():
+                buf, e_idx = self._window_bufs[e]
+                params = self._params_log[e]
+                patches = []
+                for sw in sws:
+                    i = self._frag_pos[sw]
+                    members = self.parity_groups[self._group_of[i]]
+                    acc = self._parity[e][self._group_of[i]].clone()
+                    for j in members:
+                        if j != i:
+                            b = buf.block(e_idx, int(j) * L, L,
+                                          *self._block_shape(params, int(j)))
+                            b = b.to(acc.device, torch.int32).reshape(-1)
+                            acc[:b.numel()] ^= b
+                    n, w = self._block_shape(params, i)
+                    patches.append((i, acc[:L * n * w].reshape(L, n, w)))
+                for i, counters in patches:
+                    buf.patch(e_idx, i * L, counters)
+                    self._row_live[e][i * L:(i + 1) * L] = True
+                    self._lost[e].discard(i)
+                    recovered.setdefault(e, []).append(self.frag_order[i])
+            obs.add("cells", sum(len(sws) for sws in recovered.values()))
         return recovered
 
     def point_query(self, epoch: int, keys: np.ndarray,

@@ -9,6 +9,9 @@ step span of the window path, with one PEB read a row group and epoch, one
 peak read, and the bytes its uploads count equal to those of ``pack_csr``'s
 outputs and the parameter table; ``query_flows`` and ``query_entropy`` emit
 the query planes' spans and the entropy root counts its path groups.
+Under churn a window also masks, takes parity and zeroes its lost cells,
+each event is spanned with the survivors it re-equalized, and a recovery
+counts its cells; a window without churn opens none of these spans.
 """
 import json
 from collections import Counter, deque
@@ -19,7 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import obs
-from repro_torch.core import query
+from repro_torch.core import equalize, query
 from repro_torch.core.disketch import DiSketchSystem
 from repro_torch.core.fleet import build_params, pack_csr, pack_streams
 from repro_torch.kernels.sketch_update import fleet as FK
@@ -242,3 +245,57 @@ def test_query_planes_emit_their_spans(fleet_run):
     staged = sum((s.counts or {}).get("bytes", 0) for s in ent
                  if s.name == "query.stage")
     assert staged > 0
+
+
+def test_churn_emits_its_spans_only_where_it_runs():
+    """A window with two deaths at its second epoch, under parity groups of
+    5: the masking counts the dead packets, the parity its bytes, the loss
+    its cells, each death the survivors it re-equalized, and the recovery
+    the lone victim's cell.  The same window without churn opens none."""
+    from repro_torch.core.fleet import parity_groups_chunked
+    from repro_torch.net.simulator import FailureEvent
+
+    wl = gen_workload(FatTree(4), n_flows=1500, total_packets=20_000,
+                      n_epochs=WINDOW, log2_te=LOG2_TE, seed=12)
+    rep = Replayer(wl, 20)
+    mems = {sw: 4 * 1024 for sw in range(20)}
+    streams = [rep.epoch_stream(e) for e in range(WINDOW)]
+    churn = set(("fleet.mask", "fleet.parity", "fleet.lose",
+                 "fleet.recover", "disketch.apply_event"))
+
+    plain = DiSketchSystem(mems, "cs", rho_target=0.5, log2_te=LOG2_TE,
+                           device="cpu")
+    obs.clear()
+    plain.run_window(0, streams)
+    assert not churn & {s.name for s in obs.spans()}
+
+    system = DiSketchSystem(
+        mems, "cs", rho_target=0.5, log2_te=LOG2_TE, device="cpu",
+        fleet_kwargs={"parity_groups": parity_groups_chunked(range(20), 5)})
+    system.run_window(0, streams)              # a PEB for every switch
+    events = [[], [FailureEvent(WINDOW + 1, 1, "fail"),
+                   FailureEvent(WINDOW + 1, 7, "fail")]] + [[]] * (WINDOW - 2)
+    last, ns, want = system._last_pebs(), dict(system.ns), []
+    for dead in ({1}, {1, 7}):      # each death re-equalizes the others
+        moved = equalize.reequalize(
+            {sw: n for sw, n in ns.items() if sw not in dead}, last, 0.5)
+        want.append(sum(1 for sw, n in moved.items() if ns[sw] != n))
+        ns.update(moved)
+    obs.clear()
+    system.run_window(WINDOW, streams, events_by_epoch=events)
+    system.fleet.recover()
+    recs = obs.spans()
+    by = {name: [s for s in recs if s.name == name] for name in churn}
+    dead = sum(len(streams[e][sw].keys) for e in range(1, WINDOW)
+               for sw in (1, 7) if sw in streams[e])
+    assert [s.counts for s in by["fleet.mask"]] == [{"packets": dead}]
+    parity = system.fleet._parity
+    assert [s.counts for s in by["fleet.parity"]] == [{"bytes": sum(
+        p.nbytes for e in range(WINDOW, 2 * WINDOW) for p in parity[e])}]
+    assert [s.counts for s in by["fleet.lose"]] == [{"cells": 2}]
+    assert [s.counts for s in by["disketch.apply_event"]] == [
+        {"reequalized": n} for n in want]
+    assert want[0] > 0
+    assert [s.counts for s in by["fleet.recover"]] == [{"cells": 2}]
+    assert all(s.root == by["disketch.apply_event"][0].root
+               for s in by["fleet.mask"] + by["fleet.lose"])
