@@ -954,67 +954,80 @@ def kernel_phase_dense(dev) -> float:
     return worst
 
 
-def _window_packets(fleet, rep, e0, n_epochs=WINDOW, dead_at=None):
+def _window_packets(fleet, rep, e0, n_epochs=WINDOW, dead_at=None,
+                    fold=True):
     """The epochs of the window from ``e0``, their parameter rows and their
-    folded ``FleetPacket``s, as the fleet runner makes them (the segments
-    of the switches dead in an epoch masked to value 0)."""
+    ``FleetPacket``s (the segments of the switches dead in an epoch masked
+    to value 0): folded by the host (``fold_packet_flags``), or, without
+    ``fold``, raw, as the fleet runner stages them for a card's scatter."""
     from repro_torch.core.fleet import fold_packet_flags, mask_fragment_values
 
     es = [e for e in range(e0, e0 + n_epochs) if e in fleet._params_log]
     params = np.concatenate([fleet._params_log[e] for e in es])
     pos = {sw: i for i, sw in enumerate(fleet.frag_order)}
-    packets = [fold_packet_flags(mask_fragment_values(
+    packets = [mask_fragment_values(
         rep.epoch_packet(e, fleet.frag_order),
-        sorted(pos[sw] for sw in (dead_at or {}).get(e, ()))),
-        fleet.log2_te, n_levels=fleet.n_levels, level_seed=fleet.level_seed,
-        mitigation=fleet.mitigation) for e in es]
+        sorted(pos[sw] for sw in (dead_at or {}).get(e, ()))) for e in es]
+    if fold:
+        packets = [fold_packet_flags(
+            p, fleet.log2_te, n_levels=fleet.n_levels,
+            level_seed=fleet.level_seed, mitigation=fleet.mitigation)
+            for p in packets]
     return es, params, packets
 
 
 def csr_scatter_window(fleet, rep, e0, dev, groups, timed=False):
     """The CSR scatter at window ``e0``'s row groups (a fleet on one card),
-    staged as ``core.fleet.csr_streams`` stages them: the window's packets
-    (``stage_packets``, page-locked) and each n_sub group's tables
+    staged as ``core.fleet.csr_streams`` stages them: the window's raw
+    packets (``stage_packets``, page-locked) and each n_sub group's tables
     (``csr_row_tables``) uploaded, then each group's stream from
     ``FK.csr_scatter`` and from its plain version ``FK.csr_scatter_ref``
-    on the same device tensors, equal (``torch.equal``), and equal to the
-    ``pack_csr`` stream of the same group in ``groups`` (``_window_groups``).
+    on the same device tensors, with the fleet's fold (``log2_te``,
+    ``n_levels``, ``level_seed``: a UnivMon fleet's scatter folds each
+    key's level into its ts), equal (``torch.equal``), and equal to the
+    ``pack_csr`` stream of the host-folded packets of the same group in
+    ``groups`` (``_window_groups``).
 
     Returns ``(max_abs_err, timing)``; ``timing`` (None unless ``timed``)
     as ``kernel_timing``'s: the eager ``ms`` and the ``device_ms`` of the
     window's scatter launches, the plain version's ``plain_ms``, and
     ``bound_ms`` for the bytes the scatter must move at HBM bandwidth (12 B
-    read per live packet, 12 B written per slot, and its tables); besides,
-    ``upload_ms``, the page-locked copy of the staging to the card (CUDA
-    events), and its ``upload_mb``."""
+    read per live packet, 12 B written per slot, and its tables; the fold
+    moves no byte more); besides, ``upload_ms``, the page-locked copy of
+    the staging to the card (CUDA events), its ``upload_mb``, and
+    ``folded``, the live packets whose level the scatter folded."""
     import torch
 
     from repro_torch.core.fleet import csr_row_tables, stage_packets
     from repro_torch.kernels.sketch_update import fleet as FK
 
     assert fleet._shard_frag_bounds is None, "one card's groups only"
-    _, params, packets = _window_packets(fleet, rep, e0)
+    assert not fleet.mitigation, "§4.4's flag is folded on the host"
+    _, params, packets = _window_packets(fleet, rep, e0, fold=False)
     n_frags, L, blk = len(fleet.frag_order), fleet.n_levels, fleet.blk
+    fold = dict(log2_te=fleet.log2_te, n_levels=L,
+                level_seed=fleet.level_seed)
     nsub_f = params[:n_frags * L:L, FK.PARAM_N_SUB]
     idxs = [np.flatnonzero(nsub_f == n) for n in np.unique(nsub_f)]
     assert len(idxs) == len(groups), (len(idxs), len(groups))
     staged = stage_packets(packets, pin=True)
     d = staged.to(dev, non_blocking=True)
     keys, vals, ts = d[0], d[1].view(torch.float32), d[2]
-    tables, err, n_bytes = [], 0.0, 0
+    tables, err, n_bytes, n_live = [], 0.0, 0, 0
     for idx, (args, _) in zip(idxs, groups):
         rows, bf = csr_row_tables(packets, idx, blk)
         np.testing.assert_array_equal(bf, args[4])
         tab = (torch.from_numpy(rows).to(dev),
                torch.from_numpy(bf.astype(np.int64)).to(dev))
-        got = FK.csr_scatter(keys, vals, ts, *tab, blk=blk)
-        plain = FK.csr_scatter_ref(keys, vals, ts, *tab, blk=blk)
+        got = FK.csr_scatter(keys, vals, ts, *tab, blk=blk, **fold)
+        plain = FK.csr_scatter_ref(keys, vals, ts, *tab, blk=blk, **fold)
         packed = _to_device(args, dev)[:3]
         for g, want, host in zip(got, plain, packed):
             err = max(err, float((g.double() - want.double()).abs().max()))
             assert torch.equal(g, want), "csr_scatter != its plain version"
             assert torch.equal(g, host), "csr_scatter != pack_csr"
         tables.append(tab)
+        n_live += int(rows[1].sum())
         n_bytes += (12 * int(rows[1].sum()) + 12 * len(bf) * blk
                     + rows.nbytes + 8 * len(bf))
         del got, plain, packed
@@ -1022,7 +1035,7 @@ def csr_scatter_window(fleet, rep, e0, dev, groups, timed=False):
         return err, None
 
     def scatter(tab):
-        return FK.csr_scatter(keys, vals, ts, *tab, blk=blk)
+        return FK.csr_scatter(keys, vals, ts, *tab, blk=blk, **fold)
 
     def run():
         for tab in tables:
@@ -1032,11 +1045,12 @@ def csr_scatter_window(fleet, rep, e0, dev, groups, timed=False):
         ms=sum(_time_ms(lambda t=t: scatter(t)) for t in tables),
         device_ms=_graph_ms(run),
         plain_ms=sum(_time_ms(lambda t=t: FK.csr_scatter_ref(
-            keys, vals, ts, *t, blk=blk), reps=3, warmup=1) for t in tables),
+            keys, vals, ts, *t, blk=blk, **fold), reps=3, warmup=1)
+            for t in tables),
         bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes",
         groups=len(tables),
         upload_ms=_time_ms(lambda: staged.to(dev, non_blocking=True)),
-        upload_mb=staged.nbytes / 1e6)
+        upload_mb=staged.nbytes / 1e6, folded=n_live if L > 1 else 0)
     return err, timing
 
 
@@ -1547,6 +1561,7 @@ def univmon_window(dev, sc):
     needs."""
     import torch
 
+    from repro_torch import obs
     from repro_torch.core.disketch import DiSketchSystem, _g_entropy
     from repro_torch.core.hashing import level_of
     from repro_torch.core.query import fleet_query_window, path_groups
@@ -1566,6 +1581,8 @@ def univmon_window(dev, sc):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     reset_counts()
+    FK.csr_scatter.launches = 0
+    obs.clear()
     h0 = time.perf_counter()
     start.record()
     rep.run(system, window=WINDOW)          # <- the UnivMon window path
@@ -1574,10 +1591,19 @@ def univmon_window(dev, sc):
     run_s = time.perf_counter() - h0
     counts = read_counts()
     launches = counts["fleet_ragged"]
+    scatters = FK.csr_scatter.launches
     expected = sum(len(np.unique(fleet._params_log[e0][:, FK.PARAM_N_SUB]))
                    for e0 in range(0, N_EPOCHS, WINDOW))
     assert launches == expected > 0, (counts, expected)
     assert counts["sketch_update"] == counts["fleet_dense"] == 0, counts
+    # one card: each B1 launch's stream laid out by one scatter, which
+    # folded the level of every staged packet of every window
+    assert scatters == launches, (scatters, launches)
+    folded = sum((s.counts or {}).get("folded", 0) for s in obs.spans()
+                 if s.name == "fleet.pack_csr")
+    staged = sum(len(rep.epoch_packet(e, fleet.frag_order).keys)
+                 for e in range(N_EPOCHS))
+    assert obs.dropped() == 0 and folded == staged > 0, (folded, staged)
     window_ms = start.elapsed_time(end) / n_windows
     bufs = list({id(b): b for b, _ in fleet._window_bufs.values()}.values())
     assert all(b.resident and b._host is None
@@ -1588,13 +1614,19 @@ def univmon_window(dev, sc):
 
     # window 8's level-row groups against the plain version
     err = 0.0
-    for (args, kw), (_, got) in zip(_window_groups(fleet, rep, WINDOW),
+    groups = _window_groups(fleet, rep, WINDOW)
+    for (args, kw), (_, got) in zip(groups,
                                     fleet._window_bufs[WINDOW][0].device()):
         plain = FK.fleet_update_ragged_ref(*_to_device(args, dev), **kw)
         got = got.reshape(plain.shape)
         err = max(err, float((got - plain).abs().max()))
         assert torch.equal(got, plain), "um window groups != plain version"
         del plain
+    # ... and window 8's CSR scatter, folding the levels of its raw
+    # packets, against its plain version and pack_csr of the host-folded
+    # packets, on the same staging (timed)
+    s_err, s_timing = csr_scatter_window(fleet, rep, WINDOW, dev, groups,
+                                         timed=True)
 
     # entropy of all flows over the 32 epochs, on the device
     torch.cuda.synchronize()
@@ -1657,13 +1689,17 @@ def univmon_window(dev, sc):
     assert all(b.resident and b._host is None for b in bufs), \
         "a UnivMon window left the device"
     peak_query = torch.cuda.max_memory_allocated()
-    timing = kernel_timing(_window_groups(fleet, rep, WINDOW), dev)
+    timing = kernel_timing(groups, dev)
     n_by_window = [sorted(set(fleet._params_log[w0][:, FK.PARAM_N_SUB]
                               .tolist()))
                    for w0 in range(0, N_EPOCHS, WINDOW)]
     _log(f"univmon window {WINDOW}: rho_target={RHO['um']} n_levels="
          f"{N_LEVELS} ({rows} level rows) launches={launches} (expected "
-         f"{expected}); update {window_ms:.2f} ms/window (CUDA events; "
+         f"{expected}; CSR scatter launches {scatters}, levels folded on "
+         f"the card for {folded} staged packets, every one; window "
+         f"{WINDOW}'s folded scatter == plain version and pack_csr of the "
+         f"host-folded packets, max_abs_err {s_err}); update "
+         f"{window_ms:.2f} ms/window (CUDA events; "
          f"{events / (window_ms * n_windows / 1e3):.4g} packet-switch "
          f"events/s; host {run_s:.2f} s total); resident {stack_bytes} B "
          f"in {len(bufs)} windows, peak device memory {peak_replay} B in the "
@@ -1681,10 +1717,16 @@ def univmon_window(dev, sc):
          f"12 path groups; windows stayed on the device")
     _timing_line(f"fleet_ragged one um window ({timing['groups']} launches, "
                  f"{N_LEVELS} levels)", timing)
-    del system, fleet, bufs
+    _timing_line(f"csr_scatter one um window, level fold "
+                 f"({s_timing['groups']} launches, {s_timing['folded']} "
+                 f"levels folded; its page-locked staging of "
+                 f"{s_timing['upload_mb']:.2f} MB uploads in "
+                 f"{s_timing['upload_ms']:.4f} ms)", s_timing)
+    del system, fleet, bufs, groups
     profile_replay(mems, rep, kind="um")
     torch.cuda.empty_cache()
-    return dict(launches=launches, max_abs_err=err)
+    return dict(launches=launches, max_abs_err=err, scatter_launches=scatters,
+                scatter_err=s_err, scatter_timing=s_timing)
 
 
 def univmon_epoch(dev, sc):
@@ -4565,9 +4607,15 @@ def main() -> int:
             # replaces the reference's host packer, not one of its kernels
             ("csr_scatter", "src/repro/core/fleet.py:234",
              res["scatter_launches"], res["scatter_err"], s_timing),
+            # the same kernel folding UnivMon levels: replaces the
+            # reference's host fold as well
+            ("csr_scatter_level_fold", "src/repro/core/fleet.py:159",
+             um_w["scatter_launches"], um_w["scatter_err"],
+             um_w["scatter_timing"]),
         ]
         line = {"kernels": [{
-            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"{src}{name.replace('_level_fold', '')}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": t["ms"],
             "device_ms": t.get("device_ms"), "plain_ms": t["plain_ms"],

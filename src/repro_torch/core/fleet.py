@@ -3,7 +3,8 @@ or per multi-epoch *window* (port of ``repro/core/fleet.py``).
 
 Every switch's epoch stream is packed into one flat blk-aligned CSR
 stream (``pack_csr`` on the host; on a card ``csr_streams`` stages the raw
-packets once a device and a CUDA scatter lays the stream out there), and all
+packets once a device and a CUDA scatter lays the stream out there, folding
+each key's UnivMon level as it goes), and all
 (epoch, fragment[, level]) rows are updated by ``fleet_update_ragged`` —
 one launch per distinct subepoch count (``dispatch_ragged_grouped``).
 The counters stay on the device: the overflow peak and the §4.2 PEBs are
@@ -23,7 +24,9 @@ computed there.
 
 UnivMon levels are virtual fragment rows of the parameter table, and the
 per-key level id and §4.4 single-hop flag ride the high bits of the
-packed timestamp (``fold_packet_flags``), exactly as in the reference, so
+packed timestamp (``fold_packet_flags``; on a card the CSR scatter hashes
+the level itself, and the host folds only §4.4's flag, with the level),
+exactly as in the reference, so
 counters are bit-identical to it for cs, cms and um, with or without
 mitigation.
 
@@ -319,20 +322,27 @@ def csr_row_tables(packets: Sequence[FleetPacket], idx: np.ndarray,
 
 def csr_streams(packets: Sequence[FleetPacket],
                 groups: Sequence[Tuple[torch.device, np.ndarray]],
-                blk: int = 256) -> List[Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor, np.ndarray]]:
+                blk: int = 256, *, log2_te: int = 0, n_levels: int = 1,
+                level_seed: int = 0
+                ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                np.ndarray]]:
     """B1's stream of each row group, built on the group's device.  For
     each distinct device, the span of fragment positions its groups cover
     (``stage_packets``) and its groups' row tables (``csr_row_tables``)
     are copied once into host buffers, page-locked on a card, and
     uploaded once; each group's stream is then gathered there by
     ``csr_scatter`` (a CUDA kernel on a card), one launch a group, each a
-    ``launches`` count of its ``fleet.pack_csr`` span.
+    ``launches`` count of its ``fleet.pack_csr`` span.  With ``n_levels >
+    1`` the packets come unfolded and the scatter folds each key's UnivMon
+    level into its ts (``fold_packet_flags`` without §4.4), each group's
+    packets a ``folded`` count of the same span (0 without levels).
 
     ``groups`` are ``(device, frag_idx)`` pairs.  Returns per group
     ``(keys, vals, ts, block_frag)``: int32, float32 and int32 tensors on
-    its device holding the bits of ``pack_csr([p.select(frag_idx) for p in
-    packets], blk)``, and that call's int32 ``block_frag`` on the host."""
+    its device holding the bits of ``pack_csr([fold_packet_flags(p,
+    log2_te, n_levels=n_levels, level_seed=level_seed).select(frag_idx) for
+    p in packets], blk)``, and that call's int32 ``block_frag`` on the
+    host."""
     devs = [torch.device(d) for d, _ in groups]
     out = [None] * len(groups)
     for dev in dict.fromkeys(devs):
@@ -358,8 +368,12 @@ def csr_streams(packets: Sequence[FleetPacket],
                 n0 = FK.csr_scatter.launches
                 keys, vals, ts = FK.csr_scatter(
                     s[0], s[1].view(torch.float32), s[2],
-                    t[2 * k].view(3, -1), t[2 * k + 1], blk=blk)
+                    t[2 * k].view(3, -1), t[2 * k + 1], blk=blk,
+                    log2_te=log2_te, n_levels=n_levels,
+                    level_seed=level_seed)
                 obs.add("launches", FK.csr_scatter.launches - n0)
+                obs.add("folded",
+                        int(tabs[k][0][1].sum()) if n_levels > 1 else 0)
             out[j] = (keys, vals, ts, tabs[k][1])
     return out
 
@@ -401,6 +415,7 @@ def build_params(fragments: Dict[int, FragmentConfig], epoch: int,
 def dispatch_ragged_grouped(params: np.ndarray,
                             packets: Sequence[FleetPacket], *, log2_te: int,
                             signed: bool, blk: int = 256, n_levels: int = 1,
+                            level_seed: int = 0,
                             with_mitigation: bool = False,
                             device=None,
                             shards: Optional[Sequence[Tuple[Tuple[int, int],
@@ -420,9 +435,17 @@ def dispatch_ragged_grouped(params: np.ndarray,
     launches its own groups on its own device.  A group on a card has its
     stream built there (``csr_streams``: each device's span of fragments
     is staged and uploaded once a window); a group on the CPU, by
-    ``pack_csr`` of its fragments' segments on the host.  Returns the
-    window's row
-    groups: ``(rows, counters)`` per group, block by block in ascending
+    ``pack_csr`` of its fragments' segments on the host.
+
+    ``packets`` come unfolded: each key's UnivMon level (``n_levels``,
+    ``level_seed``) is folded into its ts where its group's stream is
+    built, by the scatter on a card and by ``fold_packet_flags`` on the
+    host for a group on the CPU.  §4.4's single-hop bit is a per-packet
+    flag no hash recomputes, so with mitigation the host folds every
+    packet and the scatter copies.  The host's folding is one
+    ``fleet.fold_flags`` span a call, empty where it has nothing to fold.
+    Returns the window's row groups: ``(rows, counters)`` per group, block
+    by block in ascending
     ``n_sub``, with ``rows`` the group's row indices within an epoch and
     ``counters`` its ``(E, R_g, n_sub_g, width_g)`` f32 output on its
     block's device.  Nothing is padded to the fleet-wide ceiling.
@@ -448,9 +471,22 @@ def dispatch_ragged_grouped(params: np.ndarray,
             plan.append((dev, int(n_g),
                          lo + np.flatnonzero(nsub_f[lo:hi] == n_g)))
     # A group on a card gets its stream built there (csr_streams: one
-    # staging and upload a device); on the CPU, pack_csr builds it.
+    # staging and upload a device, the levels folded by its scatter); on
+    # the CPU, pack_csr builds it from packets the host folds.  The cached
+    # epoch packets are shared across systems: folding returns new packets
+    # and leaves them untouched.
     on_card = [(dev, idx) for dev, _, idx in plan if dev.type == "cuda"]
-    card = iter(csr_streams(packets, on_card, blk) if on_card else ())
+    host = packets
+    with obs.span("fleet.fold_flags"):
+        if with_mitigation or (L > 1 and len(on_card) < len(plan)):
+            host = [fold_packet_flags(p, log2_te, n_levels=L,
+                                      level_seed=level_seed,
+                                      mitigation=with_mitigation)
+                    for p in packets]
+    card = iter(csr_streams(host if with_mitigation else packets, on_card,
+                            blk, log2_te=log2_te,
+                            n_levels=1 if with_mitigation else L,
+                            level_seed=level_seed) if on_card else ())
     groups: StackGroups = []
     for dev, n_g, frag_idx in plan:
         w_g = int(width_f[frag_idx].max())
@@ -462,10 +498,10 @@ def dispatch_ragged_grouped(params: np.ndarray,
                     + rows[None, :]).ravel()
         if dev.type == "cuda":
             keys, vals, ts, block_frag = next(card)
-        else:       # launches no scatter: the span's count reads 0
-            with obs.span("fleet.pack_csr", launches=0):
+        else:       # launches no scatter: the span's counts read 0
+            with obs.span("fleet.pack_csr", launches=0, folded=0):
                 keys, vals, ts, block_frag = pack_csr(
-                    [p.select(frag_idx) for p in packets], blk)
+                    [p.select(frag_idx) for p in host], blk)
         out_g = FK.fleet_update_ragged(
             keys, vals, ts, params[all_rows], block_frag,
             n_sub_max=n_g, width_max=w_g, log2_te=log2_te, signed=signed,
@@ -861,19 +897,14 @@ class FleetEpochRunner:
                 raise ValueError("dense layout is per-epoch only; window "
                                  "dispatch requires layout='ragged'")
             return self._dispatch_dense(params, packets[0])
-        # The cached epoch packets are shared across systems: folding
-        # returns new packets and leaves them untouched.
-        with obs.span("fleet.fold_flags"):
-            packets = [fold_packet_flags(p, self.log2_te,
-                                         n_levels=self.n_levels,
-                                         level_seed=self.level_seed,
-                                         mitigation=self.mitigation)
-                       for p in packets]
+        # The levels and §4.4's flags are folded where each row group's
+        # stream is built (dispatch_ragged_grouped).
         return dispatch_ragged_grouped(
             params, packets, log2_te=self.log2_te,
             signed=self.kind in ("cs", "um"), blk=self.blk,
-            n_levels=self.n_levels, with_mitigation=self.mitigation,
-            device=self.device, shards=self._shards)
+            n_levels=self.n_levels, level_seed=self.level_seed,
+            with_mitigation=self.mitigation, device=self.device,
+            shards=self._shards)
 
     def _dispatch_dense(self, params: np.ndarray,
                         packet: FleetPacket) -> StackGroups:

@@ -145,3 +145,16 @@ def hash_pow2_torch(keys, seed, n) -> torch.Tensor:
 
 def hash_sign_torch(keys, seed) -> torch.Tensor:
     return 1 - 2 * (hash_u32_torch(keys, seed) & 1)
+
+
+def level_of_torch(keys, seed: int, n_levels: int) -> torch.Tensor:
+    """int64 twin of ``level_of``, in integer steps alone: the count of
+    trailing ones among the key's ``n_levels - 1`` sampling bits (where
+    ``level_of`` finds the lowest set bit of their complement)."""
+    bits = hash_u32_torch(keys, seed)
+    lvl = torch.zeros_like(bits)
+    run = torch.ones_like(bits, dtype=torch.bool)
+    for b in range(n_levels - 1):
+        run &= ((bits >> b) & 1).bool()
+        lvl += run
+    return lvl

@@ -14,7 +14,8 @@ the reference's dense ``(n_frags, p_max)`` rectangle instead, cs/cms only
 ``fleet_update_loop`` is the loop-of-kernels baseline: one single-fragment
 ``ops.sketch_update`` (kernel B2) per parameter row.  ``csr_scatter``
 (``csrc/csr_scatter.cu``, in B1's library) lays out B1's stream on the
-card from a window's staged packets.
+card from a window's staged packets, folding each key's UnivMon level into
+its ts as it goes.
 
 On CUDA tensors each wrapper launches its hand-written kernel (which
 replaces the TPU's Pallas kernel) and raises if the launch fails; on CPU
@@ -37,7 +38,9 @@ import numpy as np
 import torch
 
 from ... import obs
-from .kernel import check_launch, kernel_lib, pad_to
+from ...core.hashing import level_of_torch
+from .kernel import (LVL_FIELD_MASK, LVL_SHIFT, check_launch, kernel_lib,
+                     pad_to)
 from .ref import row_contrib
 
 # Columns of the per-row int32 parameter table.
@@ -330,12 +333,14 @@ fleet_update_ragged.launches = 0
 
 def csr_scatter_ref(keys: torch.Tensor, vals: torch.Tensor, ts: torch.Tensor,
                     rows: torch.Tensor, block_row: torch.Tensor, *,
-                    blk: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
+                    blk: int, log2_te: int = 0, n_levels: int = 1,
+                    level_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
     """Plain PyTorch version of the CSR scatter: slot ``q`` of block
     ``b = q // blk`` holds staged packet ``src_off[r] + s`` of its row
     ``r = block_row[b]`` while ``s = q - first_blk[r] * blk`` is below
-    the row's length, and zeros after."""
+    the row's length, and zeros after; with ``n_levels > 1`` a live slot's
+    ts is folded as ``core.fleet.fold_packet_flags`` folds the level."""
     dev = keys.device
     n = block_row.shape[0] * blk
     q = torch.arange(n, device=dev)
@@ -348,10 +353,15 @@ def csr_scatter_ref(keys: torch.Tensor, vals: torch.Tensor, ts: torch.Tensor,
         o = torch.zeros(n, dtype=x.dtype, device=dev)
         o[live] = x[src]
         out.append(o)
+    if n_levels > 1:
+        lvl = level_of_torch(keys[src], level_seed, n_levels)
+        out[2][live] = ((ts[src].to(torch.int64) & ((1 << log2_te) - 1))
+                        | (lvl << LVL_SHIFT)).to(torch.int32)
     return tuple(out)
 
 
-def csr_scatter(keys, vals, ts, rows, block_row, *, blk: int = 256
+def csr_scatter(keys, vals, ts, rows, block_row, *, blk: int = 256,
+                log2_te: int = 0, n_levels: int = 1, level_seed: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One row group's ``(n_blocks * blk,)`` stream for ``fleet_update_
     ragged``, gathered from a window's staged packets
@@ -366,6 +376,10 @@ def csr_scatter(keys, vals, ts, rows, block_row, *, blk: int = 256
       block_row: ``(n_blocks,)`` int64 block -> packet-row map.
       All on one device.  The tables are trusted as ``csr_row_tables``
       builds them: reading them back here would make the host wait.
+      log2_te/n_levels/level_seed: with ``n_levels > 1`` the staged ts are
+        raw, and each live slot's is folded as ``core.fleet.
+        fold_packet_flags(..., n_levels=n_levels, level_seed=level_seed)``
+        folds it (no §4.4 flag); ``n_levels = 1`` copies them.
 
     Returns int32 keys, float32 values and int32 ts of ``n_blocks * blk``
     slots on that device.  CUDA tensors launch the scatter kernel
@@ -389,16 +403,28 @@ def csr_scatter(keys, vals, ts, rows, block_row, *, blk: int = 256
     if blk < 1 or blk % SLOTS_PER_THREAD:
         raise ValueError(f"blk={blk} is not a positive multiple of "
                          f"{SLOTS_PER_THREAD} (one 16-byte store)")
+    if not 1 <= n_levels <= LVL_FIELD_MASK + 1:
+        raise ValueError(f"n_levels={n_levels} outside [1, "
+                         f"{LVL_FIELD_MASK + 1}]")
+    if n_levels > 1 and not 0 <= log2_te <= LVL_SHIFT:
+        raise ValueError(f"folding levels needs log2_te in [0, {LVL_SHIFT}]"
+                         f", got {log2_te}")
+    fold = dict(log2_te=log2_te, n_levels=n_levels,
+                level_seed=level_seed & 0xFFFFFFFF)
     if dev.type == "cpu":
-        return csr_scatter_ref(keys, vals, ts, rows, block_row, blk=blk)
+        return csr_scatter_ref(keys, vals, ts, rows, block_row, blk=blk,
+                               **fold)
     return _launch_scatter(*(x.contiguous() for x in
-                             (keys, vals, ts, rows, block_row)), blk=blk)
+                             (keys, vals, ts, rows, block_row)), blk=blk,
+                           **fold)
 
 
-_SCATTER_ARGS = [_VP] * 10 + [_CLL] + [_CI] * 2 + [_VP]
+_SCATTER_ARGS = ([_VP] * 10 + [_CLL] + [_CI] * 2 + [ctypes.c_uint32] * 2
+                 + [_CI, _VP])
 
 
-def _launch_scatter(keys, vals, ts, rows, block_row, *, blk):
+def _launch_scatter(keys, vals, ts, rows, block_row, *, blk, log2_te,
+                    n_levels, level_seed):
     dev = keys.device
     n = block_row.shape[0] * blk
     outs = (torch.empty(n, dtype=torch.int32, device=dev),
@@ -416,7 +442,7 @@ def _launch_scatter(keys, vals, ts, rows, block_row, *, blk):
             keys.data_ptr(), vals.data_ptr(), ts.data_ptr(),
             rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
             block_row.data_ptr(), *(o.data_ptr() for o in outs), n_quads,
-            grid, blk, stream)
+            grid, blk, (1 << log2_te) - 1, level_seed, n_levels, stream)
     check_launch(err, "csr_scatter")
     csr_scatter.launches += 1
     return outs

@@ -635,13 +635,16 @@ def test_sharded_window_on_card(cuda_device, spread):
 
 STAGED = [("cs", 1, False, ()), ("cms", 1, False, ()), ("um", 4, False, ()),
           ("cs", 1, True, ()), ("um", 4, True, ()), ("cs", 1, False, (0, 3)),
-          ("um", 4, True, (2,))]
+          ("um", 4, True, (2,)), ("um", 16, False, ()),
+          ("um", 16, False, (1, 2))]
 
 
-def _staged_window(kind, n_levels, mitigation, masked, epochs, log2_te=12):
-    """Folded, masked ``FleetPacket``s of a small fleet: skewed segments,
-    an empty switch (3) and one with no stream (11); ``(packets, groups)``
-    with ``groups`` each n_sub group's fragment positions."""
+def _staged_window(kind, n_levels, mitigation, masked, epochs, log2_te=12,
+                   fold=True):
+    """Folded (or, without ``fold``, unfolded), masked ``FleetPacket``s of a
+    small fleet: skewed segments, an empty switch (3) and one with no
+    stream (11); ``(packets, groups)`` with ``groups`` each n_sub group's
+    fragment positions."""
     from repro_torch.core import fleet as F
     from repro_torch.core.disketch import SwitchStream
 
@@ -659,10 +662,11 @@ def _staged_window(kind, n_levels, mitigation, masked, epochs, log2_te=12):
                 keys, rng.integers(1, 4, n).astype(np.int64),
                 rng.integers(0, 1 << log2_te, n) + (e << log2_te),
                 rng.random(n) < 0.3)
+        packet = F.mask_fragment_values(F.pack_streams(streams, order),
+                                        masked)
         packets.append(F.fold_packet_flags(
-            F.mask_fragment_values(F.pack_streams(streams, order), masked),
-            log2_te, n_levels=n_levels, level_seed=7777,
-            mitigation=mitigation))
+            packet, log2_te, n_levels=n_levels, level_seed=7777,
+            mitigation=mitigation) if fold else packet)
     nsub = np.array([ns[sw] for sw in order])
     return packets, [np.flatnonzero(nsub == n) for n in np.unique(nsub)]
 
@@ -676,10 +680,17 @@ def test_csr_scatter_equals_pack_csr_on_card(cuda_device, case, blk):
     holds ``pack_csr``'s bits, padding and bucket blocks included, for two
     windows staged back to back with no sync between them (the second
     may reuse the first's page-locked buffers); one launch a group, each
-    a ``launches`` count of its ``fleet.pack_csr`` span."""
+    a ``launches`` count of its ``fleet.pack_csr`` span.  Then the same
+    windows staged unfolded, as ``FleetEpochRunner._dispatch`` stages them
+    on a card: the scatter folds each key's UnivMon level (16 levels and
+    level seed 7777 as at §6.1, and 4), its streams the bits of the host's
+    ``fold_packet_flags`` + ``pack_csr``, and each span's ``folded`` count
+    its group's packets (0 without levels); under §4.4 mitigation the host
+    folds the whole word and the scatter gets one level."""
     from repro_torch import obs
     from repro_torch.core import fleet as F
 
+    kind, n_levels, mitigation, _ = case
     windows = [_staged_window(*case, epochs) for epochs in ((5, 6, 7),
                                                            (8, 9))]
     obs.clear()
@@ -689,6 +700,29 @@ def test_csr_scatter_equals_pack_csr_on_card(cuda_device, case, blk):
     assert FK.csr_scatter.launches - before == 8
     assert sum((s.counts or {}).get("launches", 0) for s in obs.spans()
                if s.name == "fleet.pack_csr") == 8
+    _assert_streams_are_pack_csrs(windows, got, blk)
+    fold = dict(log2_te=12, level_seed=7777,
+                n_levels=1 if mitigation else n_levels)
+    raw = windows if mitigation else [
+        _staged_window(*case, epochs, fold=False)
+        for epochs in ((5, 6, 7), (8, 9))]
+    obs.clear()
+    got = [F.csr_streams(packets, [(cuda_device, idx) for idx in idxs], blk,
+                         **fold) for packets, idxs in raw]
+    folded = [s.counts["folded"] for s in obs.spans()
+              if s.name == "fleet.pack_csr"
+              and "launches" in (s.counts or {})]
+    assert len(folded) == 8
+    n_live = sum(len(p.keys) for packets, _ in raw for p in packets)
+    assert sum(folded) == (n_live if fold["n_levels"] > 1 else 0)
+    _assert_streams_are_pack_csrs(windows, got, blk)
+
+
+def _assert_streams_are_pack_csrs(windows, got, blk):
+    """Each group's card stream holds the bits of ``pack_csr`` of the
+    group's folded packets."""
+    from repro_torch.core import fleet as F
+
     for (packets, idxs), streams in zip(windows, got):
         for idx, (keys, vals, ts, bf) in zip(idxs, streams):
             want = F.pack_csr([p.select(idx) for p in packets], blk)
@@ -741,8 +775,9 @@ def test_run_window_on_card_equals_cpu(cuda_device, kind, monkeypatch):
     assert FK.csr_scatter.launches - before >= 2
     cpu = _s61_window_run(kind, "cpu", wl)
     with monkeypatch.context() as m:
-        m.setattr(F, "csr_streams", lambda packets, groups, blk: [
-            F.pack_csr([p.select(idx) for p in packets], blk)
+        m.setattr(F, "csr_streams", lambda packets, groups, blk, **fold: [
+            F.pack_csr([F.fold_packet_flags(p, **fold).select(idx)
+                        for p in packets], blk)
             for _, idx in groups])
         before = FK.csr_scatter.launches
         host_packed = _s61_window_run(kind, cuda_device, wl)

@@ -56,7 +56,8 @@ def _case(kind, n_levels, mitigation, ns, seed=0):
     tp = TF.fold_packet_flags(TF.pack_streams(streams, order), LOG2_TE,
                               **flags)
     params = TF.build_params(tfr, 5, ns, order)
-    return dict(rp=rp, tp=tp, params=params, L=L,
+    return dict(rp=rp, tp=tp, raw=TF.pack_streams(streams, order),
+                params=params, L=L,
                 n_sub_max=max(ns.values()),
                 width_max=max(c.width for c in tfr.values()),
                 signed=kind != "cms", rparams=RF.build_params(rfr, 5, ns,
@@ -92,9 +93,11 @@ def test_ragged_update_matches_reference_oracle(name):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("name", ["cs", "um4-mit"])
+@pytest.mark.parametrize("name", ["cs", "cms", "um4", "um4-mit"])
 def test_grouped_dispatch_equals_one_launch(name):
-    """Grouping rows by n_sub only changes which zero rows are made."""
+    """Grouping rows by n_sub only changes which zero rows are made.  The
+    dispatch takes the packets unfolded and folds each key's level (and,
+    with mitigation, its single-hop flag) as ``fold_packet_flags`` does."""
     kind, n_levels, mit, ns = KERNEL_CASES[name]
     c = _case(kind, n_levels, mit, ns, seed=3)
     packets = [c["tp"], c["tp"]]
@@ -102,7 +105,8 @@ def test_grouped_dispatch_equals_one_launch(name):
     kw = dict(n_sub_max=c["n_sub_max"], width_max=c["width_max"],
               log2_te=LOG2_TE, signed=c["signed"], n_levels=c["L"],
               with_mitigation=mit)
-    groups = TF.dispatch_ragged_grouped(params, packets, device="cpu",
+    groups = TF.dispatch_ragged_grouped(params, [c["raw"], c["raw"]],
+                                        device="cpu", level_seed=7777,
                                         **{k: v for k, v in kw.items()
                                            if k not in ("n_sub_max",
                                                         "width_max")})

@@ -190,6 +190,9 @@ def test_run_window_emits_every_step_span(fleet_run):
     assert names["fleet.pebs.wait"] == len(groups) * WINDOW
     assert names["fleet.peak.wait"] == 1
     assert names["fleet.pack_csr"] == names["fleet.upload"] == len(groups)
+    assert names["fleet.fold_flags"] == 1
+    assert all(s.counts == {"launches": 0, "folded": 0} for s in recs
+               if s.name == "fleet.pack_csr")
     pebs = next(s for s in recs if s.name == "fleet.pebs")
     assert all(s.parent == pebs.id for s in recs
                if s.name == "fleet.pebs.wait")

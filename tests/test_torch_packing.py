@@ -106,14 +106,18 @@ STAGED_IDS = [f"{k}{n}{'-mit' if m else ''}{'-masked' if d else ''}"
               for k, n, m, d in STAGED]
 
 
-def _staged_packets(kind, n_levels, mitigation, masked):
+def _staged_packets(kind, n_levels, mitigation, masked, fold=True):
+    """The window's masked packets, folded by ``fold_packet_flags`` (or,
+    with ``fold=False``, as the epoch packs them)."""
     order = tuple(sorted(MEMS))
     L = n_levels if kind == "um" else 1
-    return [TF.fold_packet_flags(
-        TF.mask_fragment_values(
-            TF.pack_streams(_streams(TStream, e, e), order), masked),
-        LOG2_TE, n_levels=L, level_seed=7777, mitigation=mitigation)
+    packets = [TF.mask_fragment_values(
+        TF.pack_streams(_streams(TStream, e, e), order), masked)
         for e in (5, 6, 7)]
+    if not fold:
+        return packets
+    return [TF.fold_packet_flags(p, LOG2_TE, n_levels=L, level_seed=7777,
+                                 mitigation=mitigation) for p in packets]
 
 
 @pytest.mark.parametrize("kind,n_levels,mitigation,masked", STAGED,
@@ -121,16 +125,43 @@ def _staged_packets(kind, n_levels, mitigation, masked):
 @pytest.mark.parametrize("blk", [8, 256])
 def test_staged_csr_streams_match_pack_csr(kind, n_levels, mitigation,
                                           masked, blk):
-    packets = _staged_packets(kind, n_levels, mitigation, masked)
+    _check_staged_streams(kind, n_levels, mitigation, masked, blk,
+                          on_scatter=False)
+
+
+@pytest.mark.parametrize("kind,n_levels,mitigation,masked", STAGED,
+                         ids=STAGED_IDS)
+@pytest.mark.parametrize("blk", [8, 256])
+def test_staged_csr_streams_fold_levels_as_fold_packet_flags(
+        kind, n_levels, mitigation, masked, blk):
+    """The same windows handed to ``csr_streams`` unfolded, with the fold's
+    arguments, as ``dispatch_ragged_grouped`` hands them on a card: the
+    scatter folds each key's UnivMon level, except under §4.4 mitigation,
+    where the host folds the whole word and the scatter gets one level.
+    Each stream equals ``fold_packet_flags`` + ``pack_csr`` bit for bit,
+    and the ``folded`` counts add up to the packets the scatter folded."""
+    _check_staged_streams(kind, n_levels, mitigation, masked, blk,
+                          on_scatter=True)
+
+
+def _check_staged_streams(kind, n_levels, mitigation, masked, blk,
+                          on_scatter):
+    folded = _staged_packets(kind, n_levels, mitigation, masked)
+    packets, fold = folded, {}
+    if on_scatter and not mitigation:
+        packets = _staged_packets(kind, n_levels, mitigation, masked,
+                                  fold=False)
+        fold = dict(log2_te=LOG2_TE, level_seed=7777,
+                    n_levels=n_levels if kind == "um" else 1)
     nsub = np.array([NS[sw] for sw in sorted(MEMS)])
     idxs = [np.flatnonzero(nsub == n) for n in np.unique(nsub)]
     cpu = torch.device("cpu")
     obs.clear()
-    got = TF.csr_streams(packets, [(cpu, idx) for idx in idxs], blk)
+    got = TF.csr_streams(packets, [(cpu, idx) for idx in idxs], blk, **fold)
     assert len(got) == len(idxs) == 4
     padded = 0
     for idx, (keys, vals, ts, bf) in zip(idxs, got):
-        want = TF.pack_csr([p.select(idx) for p in packets], blk)
+        want = TF.pack_csr([p.select(idx) for p in folded], blk)
         rows, bf_t = TF.csr_row_tables(packets, idx, blk)
         assert rows.shape == (3, 3 * len(idx)) and rows.dtype == np.int64
         np.testing.assert_array_equal(bf_t, want[3])
@@ -148,6 +179,91 @@ def test_staged_csr_streams_match_pack_csr(kind, n_levels, mitigation,
     names = [s.name for s in obs.spans()]
     assert names.count("fleet.pack_csr") == 1 + len(idxs)
     assert names.count("fleet.upload") == 1
+    n_folded = [s.counts["folded"] for s in obs.spans()
+                if s.name == "fleet.pack_csr"
+                and "launches" in (s.counts or {})]
+    assert len(n_folded) == len(idxs)
+    live = sum(len(p.keys) for p in packets)
+    assert sum(n_folded) == (live if fold.get("n_levels", 1) > 1 else 0)
+
+
+def _key_hashing_to(h, seed):
+    """The uint32 key whose ``hash_u32(key, seed)`` is ``h``: the hash is a
+    bijection (an odd multiplier, an add, and splitmix32's invertible
+    finalizer), so it is run backwards."""
+    m32 = 0xFFFFFFFF
+
+    def unshift(x, k):          # inverse of x ^ (x >> k)
+        y = x
+        for _ in range(32 // k + 1):
+            y = x ^ (y >> k)
+        return y & m32
+
+    x = unshift(h, 16)
+    x = (x * pow(0x846CA68B, -1, 1 << 32)) & m32
+    x = unshift(x, 15)
+    x = (x * pow(0x7FEB352D, -1, 1 << 32)) & m32
+    x = unshift(x, 16)
+    return ((x - seed) * pow(2654435769, -1, 1 << 32)) & m32
+
+
+@pytest.mark.parametrize("n_levels", [2, 16, 32])
+def test_csr_scatter_ref_folds_levels_as_level_of(n_levels):
+    """The scatter's plain version folds each live slot's ts to
+    ``(ts & te_mask) | level_of(key) << LVL_SHIFT`` and leaves the padding
+    zero: on keys 0 and 0xFFFFFFFF, on keys whose ``n_levels - 1`` sampling
+    bits are all set (level ``n_levels - 1``), or all but the top one
+    (``n_levels - 2``) or the lowest one (0), and on random keys."""
+    from repro_torch.core import hashing as H
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    seed, log2_te, blk = 7777, 16, 8
+    mask = (1 << (n_levels - 1)) - 1
+    edge = [_key_hashing_to(h, seed) for h in (
+        mask, 0xFFFFFFFF, mask ^ (1 << (n_levels - 2)), mask ^ 1,
+        0xFFFFFFFF ^ mask)]
+    assert H.hash_u32(np.array(edge, np.uint32), seed).tolist() == [
+        mask, 0xFFFFFFFF, mask ^ (1 << (n_levels - 2)), mask ^ 1,
+        0xFFFFFFFF ^ mask]
+    rng = np.random.default_rng(n_levels)
+    keys = np.concatenate([np.array([0, 0xFFFFFFFF] + edge, np.uint32),
+                           rng.integers(0, 1 << 32, 993, np.uint64)
+                           .astype(np.uint32)])
+    ts = rng.integers(0, 1 << 32, len(keys), np.uint64).astype(np.int64)
+    packet = TF.FleetPacket(keys, rng.integers(1, 4, len(keys)), ts,
+                            np.array([0, 597, len(keys)], np.int64), (0, 1))
+    want = TF.pack_csr([TF.fold_packet_flags(
+        packet, log2_te, n_levels=n_levels, level_seed=seed)], blk)
+    rows, bf = TF.csr_row_tables([packet], np.arange(2), blk)
+    staged = TF.stage_packets([packet])
+    got = FK.csr_scatter_ref(staged[0], staged[1].view(torch.float32),
+                             staged[2], torch.from_numpy(rows),
+                             torch.from_numpy(bf.astype(np.int64)), blk=blk,
+                             log2_te=log2_te, n_levels=n_levels,
+                             level_seed=seed)
+    for t, w in zip(got, want[:3]):
+        np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                      w.view(np.uint32))
+    lvl = got[2].numpy().view(np.uint32)[:len(edge) + 2] >> 24
+    assert lvl.tolist() == H.level_of(keys[:len(edge) + 2], seed,
+                                      n_levels).tolist()
+    assert lvl[2:5].tolist() == [n_levels - 1, n_levels - 1,
+                                 max(n_levels - 2, 0)]
+    assert lvl[5:7].tolist() == [0, 0]
+    assert not got[2].numpy()[597:600].any()     # row 0's padding
+
+
+def test_csr_scatter_refuses_a_fold_it_cannot_make():
+    from repro_torch.kernels.sketch_update import fleet as FK
+
+    keys = torch.zeros(8, dtype=torch.int32)
+    args = (keys, keys.float(), keys,
+            torch.tensor([[0], [8], [0]]), torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="n_levels=33"):
+        FK.csr_scatter(*args, blk=8, n_levels=33)
+    with pytest.raises(ValueError, match="log2_te"):
+        FK.csr_scatter(*args, blk=8, log2_te=25, n_levels=16)
+    FK.csr_scatter(*args, blk=8, log2_te=25)     # nothing to fold: a copy
 
 
 # A mesh's shards as ``dispatch_ragged_grouped`` forms its row groups:
