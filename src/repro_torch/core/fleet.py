@@ -1,10 +1,10 @@
 """Fleet execution engine: one batched device dispatch per network epoch,
 or per multi-epoch *window* (port of ``repro/core/fleet.py``).
 
-Every switch's epoch stream is packed into one flat blk-aligned CSR
-stream (``pack_csr`` on the host; on a card ``csr_streams`` stages the raw
-packets once a device and a CUDA scatter lays the stream out there, folding
-each key's UnivMon level as it goes), and all
+Every switch's epoch stream is laid out in one flat blk-aligned CSR
+stream on its row group's device (``csr_streams``: the raw packets are
+staged once a device and the CSR scatter lays each group's stream out
+there, folding each key's UnivMon level as it goes), and all
 (epoch, fragment[, level]) rows are updated by ``fleet_update_ragged`` —
 one launch per distinct subepoch count (``dispatch_ragged_grouped``).
 The counters stay on the device: the overflow peak and the §4.2 PEBs are
@@ -24,9 +24,9 @@ computed there.
 
 UnivMon levels are virtual fragment rows of the parameter table, and the
 per-key level id and §4.4 single-hop flag ride the high bits of the
-packed timestamp (``fold_packet_flags``; on a card the CSR scatter hashes
-the level itself, and the host folds only §4.4's flag, with the level),
-exactly as in the reference, so
+packed timestamp, exactly as in the reference (``fold_packet_flags``):
+the CSR scatter hashes the level, and only a §4.4 mitigation fleet has
+the host fold its flag, with the level, so
 counters are bit-identical to it for cs, cms and um, with or without
 mitigation.
 
@@ -108,7 +108,8 @@ class FleetPacket:
 
     def select(self, idx: np.ndarray) -> "FleetPacket":
         """Sub-packet with only the fragments at ``frag_order`` positions
-        ``idx`` (the n_sub-grouped dispatch packs each group apart)."""
+        ``idx``: the reference's per-group packing, kept as the oracle of
+        ``csr_streams`` (the dispatch selects nothing itself)."""
         segs = [(int(self.offsets[i]), int(self.offsets[i + 1]))
                 for i in idx]
 
@@ -237,7 +238,8 @@ def pack_csr(packets: Sequence[FleetPacket], blk: int = 256,
     Returns ``(keys, vals, ts, block_frag)``: ``(n_blocks * blk,)``
     uint32/float32/uint32 streams and the non-decreasing ``(n_blocks,)``
     int32 block->row map (trailing bucket-padding blocks map to the last
-    row).
+    row).  The reference's packer, kept as the oracle of ``csr_streams``,
+    which builds every stream the dispatch runs.
     """
     if not packets:
         raise ValueError("pack_csr needs at least one packet")
@@ -303,13 +305,13 @@ def csr_row_tables(packets: Sequence[FleetPacket], idx: np.ndarray,
                    blk: int = 256,
                    frags: Optional[Tuple[int, int]] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """The layout of ``pack_csr([p.select(idx) for p in packets], blk)``
-    over the packets as ``stage_packets(packets, frags=frags)`` lays them
-    out (``idx`` within ``frags``), without copying a packet:
-    ``(rows, block_frag)``, with ``rows`` the ``(3, R)`` int64 source
-    offset, length and first block of each (epoch, fragment) packet row,
-    epoch-major, and ``block_frag`` ``pack_csr``'s own int32 block map,
-    bucket padding included."""
+    """The layout ``pack_csr`` gives the packets' fragments ``idx``
+    (``FleetPacket.select``), over the packets as ``stage_packets(packets,
+    frags=frags)`` lays them out (``idx`` within ``frags``), without
+    copying a packet: ``(rows, block_frag)``, with ``rows`` the ``(3, R)``
+    int64 source offset, length and first block of each (epoch, fragment)
+    packet row, epoch-major, and ``block_frag`` ``pack_csr``'s own int32
+    block map, bucket padding included."""
     lo, hi = frags or (0, packets[0].n_frags)
     offs = np.stack([np.asarray(p.offsets, np.int64) for p in packets])
     sizes = offs[:, hi] - offs[:, lo]
@@ -326,23 +328,25 @@ def csr_streams(packets: Sequence[FleetPacket],
                 level_seed: int = 0
                 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 np.ndarray]]:
-    """B1's stream of each row group, built on the group's device.  For
-    each distinct device, the span of fragment positions its groups cover
-    (``stage_packets``) and its groups' row tables (``csr_row_tables``)
-    are copied once into host buffers, page-locked on a card, and
-    uploaded once; each group's stream is then gathered there by
-    ``csr_scatter`` (a CUDA kernel on a card), one launch a group, each a
-    ``launches`` count of its ``fleet.pack_csr`` span.  With ``n_levels >
-    1`` the packets come unfolded and the scatter folds each key's UnivMon
-    level into its ts (``fold_packet_flags`` without §4.4), each group's
-    packets a ``folded`` count of the same span (0 without levels).
+    """B1's stream of each row group, built on the group's device, a card
+    or the CPU alike.  For each distinct device, the span of fragment
+    positions its groups cover (``stage_packets``) and its groups' row
+    tables (``csr_row_tables``) are copied once into host buffers,
+    page-locked on a card, and uploaded once; each group's stream is then
+    gathered there by ``csr_scatter`` (the CUDA kernel on a card, its plain
+    version on the CPU), one call a group in its own ``fleet.pack_csr``
+    span, whose ``launches`` counts the kernel's launches (0 on the
+    CPU).  With ``n_levels > 1`` the packets come unfolded and the
+    scatter folds each key's UnivMon level into its ts
+    (``fold_packet_flags`` without §4.4), each group's packets a
+    ``folded`` count of the same span (0 without levels).
 
     ``groups`` are ``(device, frag_idx)`` pairs.  Returns per group
     ``(keys, vals, ts, block_frag)``: int32, float32 and int32 tensors on
-    its device holding the bits of ``pack_csr([fold_packet_flags(p,
-    log2_te, n_levels=n_levels, level_seed=level_seed).select(frag_idx) for
-    p in packets], blk)``, and that call's int32 ``block_frag`` on the
-    host."""
+    its device holding the bits ``pack_csr`` gives the packets folded by
+    ``fold_packet_flags`` (``log2_te``, ``n_levels``, ``level_seed``) and
+    cut to ``frag_idx`` by ``FleetPacket.select``, and its int32
+    ``block_frag`` on the host."""
     devs = [torch.device(d) for d, _ in groups]
     out = [None] * len(groups)
     for dev in dict.fromkeys(devs):
@@ -432,18 +436,16 @@ def dispatch_ragged_grouped(params: np.ndarray,
     ``((lo, hi), device)`` blocks of fragment positions (a device mesh's;
     default one block of every fragment on ``device``, itself ``cuda`` by
     default): a group never spans two blocks, and each block packs and
-    launches its own groups on its own device.  A group on a card has its
-    stream built there (``csr_streams``: each device's span of fragments
-    is staged and uploaded once a window); a group on the CPU, by
-    ``pack_csr`` of its fragments' segments on the host.
+    launches its own groups on its own device.  Every group has its stream
+    built on its device by ``csr_streams`` (each device's span of
+    fragments is staged and uploaded once a window).
 
-    ``packets`` come unfolded: each key's UnivMon level (``n_levels``,
-    ``level_seed``) is folded into its ts where its group's stream is
-    built, by the scatter on a card and by ``fold_packet_flags`` on the
-    host for a group on the CPU.  §4.4's single-hop bit is a per-packet
-    flag no hash recomputes, so with mitigation the host folds every
-    packet and the scatter copies.  The host's folding is one
-    ``fleet.fold_flags`` span a call, empty where it has nothing to fold.
+    ``packets`` come unfolded: the scatter folds each key's UnivMon level
+    (``n_levels``, ``level_seed``) into its ts.  §4.4's single-hop bit is
+    a per-packet flag no hash recomputes, so with mitigation the host
+    folds every packet (``fold_packet_flags``) and the scatter copies.
+    The host's folding is one ``fleet.fold_flags`` span a call, empty
+    without mitigation.
     Returns the window's row groups: ``(rows, counters)`` per group, block
     by block in ascending
     ``n_sub``, with ``rows`` the group's row indices within an epoch and
@@ -470,38 +472,28 @@ def dispatch_ragged_grouped(params: np.ndarray,
         for n_g in np.unique(nsub_f[lo:hi]):
             plan.append((dev, int(n_g),
                          lo + np.flatnonzero(nsub_f[lo:hi] == n_g)))
-    # A group on a card gets its stream built there (csr_streams: one
-    # staging and upload a device, the levels folded by its scatter); on
-    # the CPU, pack_csr builds it from packets the host folds.  The cached
-    # epoch packets are shared across systems: folding returns new packets
-    # and leaves them untouched.
-    on_card = [(dev, idx) for dev, _, idx in plan if dev.type == "cuda"]
-    host = packets
+    # The cached epoch packets are shared across systems: folding returns
+    # new packets and leaves them untouched.
     with obs.span("fleet.fold_flags"):
-        if with_mitigation or (L > 1 and len(on_card) < len(plan)):
-            host = [fold_packet_flags(p, log2_te, n_levels=L,
-                                      level_seed=level_seed,
-                                      mitigation=with_mitigation)
-                    for p in packets]
-    card = iter(csr_streams(host if with_mitigation else packets, on_card,
-                            blk, log2_te=log2_te,
-                            n_levels=1 if with_mitigation else L,
-                            level_seed=level_seed) if on_card else ())
+        if with_mitigation:
+            packets = [fold_packet_flags(p, log2_te, n_levels=L,
+                                         level_seed=level_seed,
+                                         mitigation=True)
+                       for p in packets]
+    streams = csr_streams(packets, [(dev, idx) for dev, _, idx in plan],
+                          blk, log2_te=log2_te,
+                          n_levels=1 if with_mitigation else L,
+                          level_seed=level_seed)
     groups: StackGroups = []
-    for dev, n_g, frag_idx in plan:
+    for (dev, n_g, frag_idx), (keys, vals, ts, block_frag) in zip(plan,
+                                                                  streams):
         w_g = int(width_f[frag_idx].max())
         # all L level rows of each group fragment — within an epoch, and
-        # epoch-major across the window, aligned with the packet rows
-        # pack_csr emits for the selected segments
+        # epoch-major across the window, aligned with the stream's packet
+        # rows
         rows = (frag_idx[:, None] * L + np.arange(L)[None, :]).ravel()
         all_rows = (np.arange(e_count)[:, None] * n_frags * L
                     + rows[None, :]).ravel()
-        if dev.type == "cuda":
-            keys, vals, ts, block_frag = next(card)
-        else:       # launches no scatter: the span's counts read 0
-            with obs.span("fleet.pack_csr", launches=0, folded=0):
-                keys, vals, ts, block_frag = pack_csr(
-                    [p.select(frag_idx) for p in host], blk)
         out_g = FK.fleet_update_ragged(
             keys, vals, ts, params[all_rows], block_frag,
             n_sub_max=n_g, width_max=w_g, log2_te=log2_te, signed=signed,
@@ -897,8 +889,7 @@ class FleetEpochRunner:
                 raise ValueError("dense layout is per-epoch only; window "
                                  "dispatch requires layout='ragged'")
             return self._dispatch_dense(params, packets[0])
-        # The levels and §4.4's flags are folded where each row group's
-        # stream is built (dispatch_ragged_grouped).
+        # dispatch_ragged_grouped folds the levels and §4.4's flags.
         return dispatch_ragged_grouped(
             params, packets, log2_te=self.log2_te,
             signed=self.kind in ("cs", "um"), blk=self.blk,

@@ -13,8 +13,8 @@ the reference's dense ``(n_frags, p_max)`` rectangle instead, cs/cms only
 (the level and §4.4 terms are compiled out, as in the reference).
 ``fleet_update_loop`` is the loop-of-kernels baseline: one single-fragment
 ``ops.sketch_update`` (kernel B2) per parameter row.  ``csr_scatter``
-(``csrc/csr_scatter.cu``, in B1's library) lays out B1's stream on the
-card from a window's staged packets, folding each key's UnivMon level into
+(``csrc/csr_scatter.cu``, in B1's library) lays out B1's stream on its
+device from a window's staged packets, folding each key's UnivMon level into
 its ts as it goes.
 
 On CUDA tensors each wrapper launches its hand-written kernel (which

@@ -61,6 +61,7 @@ from repro_torch.runtime import (ChaosHarness, ChaosInvariantError,
                                  DurableExportPlane, VersionedControlPlane,
                                  cells_equal)
 from repro_torch.runtime.chaos import _cell
+from torch_threads import one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 from reference_pins import ChurnWindowEmulation  # noqa: E402

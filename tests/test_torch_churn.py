@@ -48,6 +48,7 @@ from repro_torch.net import simulator as TS
 from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import gen_workload
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+from torch_threads import one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 from reference_pins import ChurnWindowEmulation, n_log_digest  # noqa: E402

@@ -24,17 +24,7 @@ from repro_torch.train import compress as PCm
 from repro_torch.train.compress import CompressorState as PS
 from repro_torch.train.compress import DisketchCompressor as PC
 from repro_torch.tree import chunks, flatten, leaves, tree_map
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's tests: the suite runs them
-    beside other test workers, and idle OpenMP threads spinning on every
-    core would slow all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 # -- the reference's suite, on the port ----------------------------------------

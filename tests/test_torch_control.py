@@ -44,6 +44,7 @@ from repro_torch.net.traffic import gen_workload
 from repro_torch.runtime import (ConfigAck, ConfigDirective,
                                  SwitchConfigAgent, VersionedControlPlane)
 from repro_torch.runtime.control import _pow2_clamp
+from torch_threads import one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 from reference_pins import ChurnWindowEmulation  # noqa: E402

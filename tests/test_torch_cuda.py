@@ -682,7 +682,7 @@ def test_csr_scatter_equals_pack_csr_on_card(cuda_device, case, blk):
     may reuse the first's page-locked buffers); one launch a group, each
     a ``launches`` count of its ``fleet.pack_csr`` span.  Then the same
     windows staged unfolded, as ``FleetEpochRunner._dispatch`` stages them
-    on a card: the scatter folds each key's UnivMon level (16 levels and
+    on every device: the scatter folds each key's UnivMon level (16 levels and
     level seed 7777 as at §6.1, and 4), its streams the bits of the host's
     ``fold_packet_flags`` + ``pack_csr``, and each span's ``folded`` count
     its group's packets (0 without levels); under §4.4 mitigation the host
@@ -756,7 +756,7 @@ def _s61_window_run(kind, dev, wl, n_windows=2):
 def test_run_window_on_card_equals_cpu(cuda_device, kind, monkeypatch):
     """``run_window`` on the card, whose B1 streams the CSR scatter builds
     there, gives the counters of every cell and the Eq. 6 trajectory of
-    the CPU path (``pack_csr`` on the host) bit for bit, and its PEBs bit
+    the CPU path (the scatter's plain version) bit for bit, and its PEBs bit
     for bit those of a card run fed ``pack_csr``'s streams (the same
     float64 reductions on the same counters; the CPU's sum in another
     order, so there they agree to 1e-10): the §6.1 cs trace (2 M packets,

@@ -45,6 +45,7 @@ from repro_torch.net.channel import LossyChannel
 from repro_torch.net.simulator import FailureSchedule, Replayer
 from repro_torch.runtime import (AckMsg, Collector, DurableExportPlane,
                                  ExportMsg, SwitchExporter)
+from torch_threads import one_thread  # noqa: F401
 
 SW = 4
 LOG2_TE = 10

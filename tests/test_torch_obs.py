@@ -6,9 +6,12 @@ span, an exception closing its span, the bounded buffer, ``enable``, and
 the ``record_function`` ranges a ``torch.profiler`` sees only while it
 runs.  Then a tiny UnivMon fleet on the CPU: one ``run_window`` emits every
 step span of the window path, with one PEB read a row group and epoch, one
-peak read, and the bytes its uploads count equal to those of ``pack_csr``'s
-outputs and the parameter table; ``query_flows`` and ``query_entropy`` emit
-the query planes' spans and the entropy root counts its path groups.
+peak read, one staging and one scatter a row group (the scatter's plain
+version, which launches nothing and folds every packet's level), and the
+bytes its uploads count equal to those of the staged window, the row
+tables, and each group's parameter table and ``pack_csr``'s block map;
+``query_flows`` and ``query_entropy`` emit the query planes' spans and the
+entropy root counts its path groups.
 Under churn a window also masks, takes parity and zeroes its lost cells,
 each event is spanned with the survivors it re-equalized, and a recovery
 counts its cells; a window without churn opens none of these spans.
@@ -29,6 +32,7 @@ from repro_torch.kernels.sketch_update import fleet as FK
 from repro_torch.net.simulator import Replayer
 from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import gen_workload
+from torch_threads import one_thread  # noqa: F401
 
 LOG2_TE = 12
 WINDOW = 4
@@ -179,7 +183,7 @@ def fleet_run():
 
 
 def test_run_window_emits_every_step_span(fleet_run):
-    _, system, ns, _, recs = fleet_run
+    _, system, ns, streams, recs = fleet_run
     names = Counter(s.name for s in recs)
     assert set(INGEST) <= set(names)
     root = [s for s in recs if s.parent is None]
@@ -189,10 +193,16 @@ def test_run_window_emits_every_step_span(fleet_run):
     assert len(groups) == len(set(ns.values())) == 3
     assert names["fleet.pebs.wait"] == len(groups) * WINDOW
     assert names["fleet.peak.wait"] == 1
-    assert names["fleet.pack_csr"] == names["fleet.upload"] == len(groups)
+    assert names["fleet.pack_csr"] == names["fleet.upload"] \
+        == 1 + len(groups)
     assert names["fleet.fold_flags"] == 1
-    assert all(s.counts == {"launches": 0, "folded": 0} for s in recs
-               if s.name == "fleet.pack_csr")
+    scatters = [s.counts for s in recs if s.name == "fleet.pack_csr"
+                and "launches" in (s.counts or {})]
+    assert len(scatters) == len(groups)
+    assert all(c["launches"] == 0 for c in scatters)
+    assert sum(c["folded"] for c in scatters) \
+        == sum(int(st.keys.shape[0]) for e in streams
+               for st in e.values() if st is not None)
     pebs = next(s for s in recs if s.name == "fleet.pebs")
     assert all(s.parent == pebs.id for s in recs
                if s.name == "fleet.pebs.wait")
@@ -202,17 +212,18 @@ def test_upload_bytes_are_those_of_the_packed_stream_and_params(fleet_run):
     _, system, ns, streams, recs = fleet_run
     order = system.fleet.frag_order
     packets = [pack_streams(st, order) for st in streams]
-    want = 0
+    want = 3 * 4 * sum(len(p.keys) for p in packets)   # the staged window
     for n_g in sorted(set(ns.values())):
         idx = np.flatnonzero([ns[sw] == n_g for sw in order])
-        keys, vals, ts, bf = pack_csr([p.select(idx) for p in packets],
-                                      system.fleet.blk)
+        bf = pack_csr([p.select(idx) for p in packets], system.fleet.blk)[3]
         params = np.concatenate([
             build_params(system.fragments, e, ns, order)
             for e in range(WINDOW)]).reshape(WINDOW, len(order), N_LEVELS,
                                              FK.N_PARAMS)[:, idx]
-        want += keys.nbytes + vals.nbytes + ts.nbytes + bf.nbytes
-        want += params.nbytes
+        # the int64 row table (source offset, length, first block of each
+        # packet row) and block map, then the group's params and block map
+        want += 8 * (3 * WINDOW * len(idx) + len(bf))
+        want += params.nbytes + bf.nbytes
     got = sum(s.counts["bytes"] for s in recs if s.name == "fleet.upload")
     assert got == want
 

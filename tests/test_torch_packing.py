@@ -1,8 +1,9 @@
 """Parity of the port's host packer with the JAX package's (pure numpy on
 both sides): ``pack_streams``, ``fold_packet_flags``, ``pack_csr`` and
-``build_params`` must give equal arrays; and the stream a card builds from
-one staging of the window (``csr_streams``, here with the scatter's plain
-version) must equal ``pack_csr``'s, bit for bit."""
+``build_params`` must give equal arrays; the stream every device builds
+from one staging of the window (``csr_streams``, here with the scatter's
+plain version) must equal ``pack_csr``'s, bit for bit; and a window run on
+the CPU must equal one fed ``pack_csr``'s streams."""
 import numpy as np
 import pytest
 import torch
@@ -12,8 +13,14 @@ from repro.core.disketch import SwitchStream as RStream
 from repro.core.fragment import FragmentConfig as RCfg
 from repro_torch import obs
 from repro_torch.core import fleet as TF
+from repro_torch.core.disketch import DiSketchSystem
 from repro_torch.core.disketch import SwitchStream as TStream
 from repro_torch.core.fragment import FragmentConfig as TCfg
+from repro_torch.launch import make_switch_mesh
+from repro_torch.net.simulator import Replayer
+from repro_torch.net.topology import FatTree
+from repro_torch.net.traffic import gen_workload
+from torch_threads import one_thread  # noqa: F401
 
 LOG2_TE = 12
 MEMS = {0: 4 * 1000, 3: 4 * 70_000, 5: 4 * 300, 9: 4 * 5000, 11: 64}
@@ -308,3 +315,52 @@ def test_csr_streams_send_each_device_only_its_fragments(
         staged += n_pkts
     assert sent == want_sent and len(sent) == 2
     assert staged == sum(len(p.keys) for p in packets)
+
+
+# ``DiSketchSystem.run_window`` on the CPU, whose streams the scatter's
+# plain version builds: (kind, mitigation, shards).
+RUNS = [("cs", False, 1), ("cms", False, 1), ("um", False, 1),
+        ("um", True, 1), ("um", False, 2)]
+
+
+def _window_run(kind, mitigation, shards, wl):
+    where = (dict(device="cpu") if shards == 1 else
+             dict(mesh=make_switch_mesh(shards, devices=["cpu"] * shards)))
+    system = DiSketchSystem({sw: 32 * 1024 for sw in range(20)}, kind,
+                            rho_target=4.0, log2_te=LOG2_TE, n_levels=16,
+                            mitigation=mitigation, **where)
+    for sw in range(20):
+        system.ns[sw] = (1, 2, 4)[sw % 3]
+    rep = Replayer(wl, 20)
+    for e0 in (0, 4):            # the second window at Eq. 6's own ns
+        system.run_window(e0, [rep.epoch_stream(e)
+                               for e in range(e0, e0 + 4)])
+    return system
+
+
+@pytest.mark.parametrize("kind,mitigation,shards", RUNS,
+                         ids=[f"{k}{'-mit' if m else ''}-x{s}"
+                              for k, m, s in RUNS])
+def test_run_window_equals_a_run_fed_pack_csr(kind, mitigation, shards,
+                                              monkeypatch):
+    """A window run on the CPU gives every cell's counters, the Eq. 6
+    trajectory and the PEBs of a run whose streams ``fold_packet_flags``,
+    ``select`` and ``pack_csr`` build on the host, bit for bit: Count
+    Sketch, Count-Min, UnivMon (16 levels, level seed 7777) with and
+    without §4.4 mitigation, and UnivMon on a two-shard mesh."""
+    wl = gen_workload(FatTree(4), n_flows=1500, total_packets=20_000,
+                      n_epochs=8, log2_te=LOG2_TE, burstiness=0.2, seed=11)
+    staged = _window_run(kind, mitigation, shards, wl)
+    with monkeypatch.context() as m:
+        m.setattr(TF, "csr_streams", lambda packets, groups, blk, **fold: [
+            TF.pack_csr([TF.fold_packet_flags(p, **fold).select(idx)
+                         for p in packets], blk)
+            for _, idx in groups])
+        packed = _window_run(kind, mitigation, shards, wl)
+    assert len({n for ns in staged.n_log for n in ns.values()}) > 1
+    assert staged.n_log == packed.n_log
+    assert staged.peb_log == packed.peb_log
+    for e in range(8):
+        for sw in range(20):
+            assert np.array_equal(staged.fleet.cell_counters(e, sw),
+                                  packed.fleet.cell_counters(e, sw)), (e, sw)

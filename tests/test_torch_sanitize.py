@@ -39,6 +39,7 @@ from repro_torch.kernels.sketch_update import kernel as KK
 from repro_torch.launch.mesh import make_switch_mesh
 from repro_torch.net.simulator import FailureSchedule, Replayer
 from repro_torch.net.traffic import cov_list, linear_path_workload
+from torch_threads import one_thread  # noqa: F401
 
 N_HOPS = 5
 N_LEVELS = 4

@@ -38,6 +38,7 @@ from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import gen_workload
 from repro_torch.runtime import (ChaosHarness, DurableExportPlane,
                                  VersionedControlPlane, cells_equal)
+from torch_threads import one_thread  # noqa: F401
 
 N_SW = 6
 MEMS = {sw: 4096 if sw % 2 else 2048 for sw in range(N_SW)}

@@ -20,6 +20,7 @@ from repro_torch.core.disketch import DiSketchSystem
 from repro_torch.net.simulator import Replayer
 from repro_torch.net.topology import FatTree, SpineLeaf
 from repro_torch.net.traffic import gen_workload
+from torch_threads import one_thread  # noqa: F401
 
 LOG2_TE = 12
 N_EPOCHS = 4

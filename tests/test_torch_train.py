@@ -34,21 +34,11 @@ from repro_torch.models import model as PM
 from repro_torch.train import optimizer as PO
 from repro_torch.train import train_step as PT
 from repro_torch.tree import flatten, leaves
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ref_list_configs()
 CPU = torch.device("cpu")
 B, S = 2, 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's tests: the suite runs them
-    beside other test workers, and idle OpenMP threads spinning on every
-    core would slow all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_params(cfg, seed=0):
@@ -338,7 +328,6 @@ def test_train_state_leaf_order_is_the_reference():
     for t, (_, w) in zip(flat, jax.tree_util.tree_flatten_with_path(
             rst.params)[0]):
         np.testing.assert_array_equal(t.numpy(), np.asarray(w))
-
 
 
 def test_tree_walks_leave_no_cycle():

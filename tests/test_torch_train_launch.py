@@ -10,17 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's tests: the suite runs them
-    beside other test workers, and idle OpenMP threads spinning on every
-    core would slow all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _argv(arch, steps, *extra):

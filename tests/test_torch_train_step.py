@@ -48,20 +48,10 @@ from repro_torch.models import model as PM
 from repro_torch.train import optimizer as PO
 from repro_torch.train import train_step as PT
 from repro_torch.tree import leaves
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ref_list_configs()
 B, S, STEPS, LR = 2, 32, 3, 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's tests: the suite runs them
-    beside other test workers, and idle OpenMP threads spinning on every
-    core would slow all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mostly_close(got, want, rtol, lr_sum=None, per_leaf=True, frac=0.0):

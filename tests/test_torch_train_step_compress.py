@@ -7,21 +7,10 @@ tolerances.  A module of its own so that a parallel test run can hold
 the two halves on two workers (each compiles ten reference steps).
 """
 import pytest
-import torch
 
 from repro.configs import list_configs as ref_list_configs
 from test_torch_train_step import three_steps
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this module's tests: the suite runs them
-    beside other test workers, and idle OpenMP threads spinning on every
-    core would slow all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ref_list_configs())

@@ -47,6 +47,7 @@ from repro_torch.net.simulator import Replayer, rmse
 from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import (cov_list, gen_workload, gini_memories,
                                      linear_path_workload)
+from torch_threads import one_thread  # noqa: F401
 
 LOG2_TE = 12
 N_EPOCHS = 4
