@@ -2890,7 +2890,8 @@ def _shard_launches(fleet):
 
 
 class _GatherMeter:
-    """Counts the bytes of the ``(E, R_g, K)`` slices that
+    """Counts the bytes of the f32 estimate slices (the flow plane's
+    ``(E, R_g, K)`` rows, UnivMon's ``(E', L, pairs)`` on-path slots) that
     ``engine._all_gather_rows`` hands to the merge device while it is
     installed (``with``; the counts add up over several ``with``s).  On
     one card the copy is a no-op; across cards these bytes would cross."""
@@ -3005,7 +3006,7 @@ def _sharded_line(what, runs, q_s, meter, extra=""):
          f"launches {sh_l} (per shard and n_sub) against the twin's "
          f"{tw_s:.2f} s, {tw_l}; queries {q_s['sharded']:.2f} s against "
          f"{q_s['twin']:.2f} s; the gather handed {meter.bytes} B in "
-         f"{meter.calls} (E, R_g, K) slices to the merge device, against "
+         f"{meter.calls} f32 estimate slices to the merge device, against "
          f"{resident['sharded']} B of resident groups (the twin's "
          f"{resident['twin']} B){extra}")
 
@@ -3061,10 +3062,10 @@ def _sharded_univmon(dev, sc, mesh):
     q_s, ests, ent, meters = {}, {}, {}, {}
     total = float(len(wl.pkt_ts))
     for name, system in (("sharded", sharded), ("twin", twin)):
-        # the entropy's own per-level estimates: one (L, K_path) call of
-        # um_level_window_query per path group, kept as they come
-        level = _Timed(system.fleet.um_level_window_query)
-        system.fleet.um_level_window_query = level
+        # the entropy's own per-level estimates: the (L, K) estimates of
+        # every path group that its one grouped call leaves on the card
+        level = _Timed(system.fleet.um_level_window_query_groups)
+        system.fleet.um_level_window_query_groups = level
         try:
             with _GatherMeter() as meters[name]:
                 ent[name], q_s[name] = _timed_query(
@@ -3072,8 +3073,9 @@ def _sharded_univmon(dev, sc, mesh):
                     range(N_EPOCHS), total, n_levels=N_LEVELS,
                     level_seed=LEVEL_SEED, merge="fragment")
         finally:
-            del system.fleet.um_level_window_query
-        ests[name] = np.concatenate([out for _, out in level.calls], axis=1)
+            del system.fleet.um_level_window_query_groups
+        (_, out), = level.calls
+        ests[name] = out.cpu().numpy()
         assert ests[name].shape == (N_LEVELS, len(wl.keys))
     assert np.array_equal(ests["sharded"], ests["twin"]), \
         "sharded um: per-level estimates != the twin's"

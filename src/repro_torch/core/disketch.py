@@ -504,11 +504,11 @@ class DiSketchSystem:
 
         With ``merge="fragment"`` on the fleet backend, where every
         queried epoch's window is still on the device and ``n_levels`` /
-        ``level_seed`` are the fleet's, each path group's all-levels
-        estimates come from one batched gather/merge
-        (``FleetEpochRunner.um_level_window_query``) and the top-down
-        G-sum runs on the device (``um_gsum_device``): only the per-level
-        estimates and one scalar cross to the host.  Everything else (the
+        ``level_seed`` are the fleet's, every path group's all-levels
+        estimates come from one on-path gather a window
+        (``FleetEpochRunner.um_level_window_query_groups``) and stay on
+        the device for the top-down G-sum (``um_gsum_device``): one
+        scalar crosses to the host.  Everything else (the
         default subepoch merge, the loop backend, host windows) goes
         through the record plane (``query.um_entropy_window``).
         ``failures`` follows ``query_flows``, but the record plane masks
@@ -533,18 +533,19 @@ class DiSketchSystem:
             if device_ok:
                 from ..kernels.sketch_query import um_gsum_device
 
-                ests, lvls = [], []
-                for path, idxs in by_path.items():
-                    ks = keys[idxs]
-                    ests.append(self.fleet.um_level_window_query(
-                        epochs, ks, path=path, failures=failures))
-                    with obs.span("hash.level_of"):
-                        lvls.append(H.level_of(ks, level_seed, n_levels))
-                if not ests:
+                if not by_path:
                     return 0.0 if total <= 0 else float(np.log2(total))
-                s = um_gsum_device(np.concatenate(ests, axis=1),
-                                   np.concatenate(lvls), _g_entropy,
-                                   k_heavy=k_heavy, device=self.fleet.device)
+                # every group's keys in one batch, in the groups' order:
+                # the G-sum's stable sort breaks ties by position
+                ks = np.concatenate([keys[i] for i in by_path.values()])
+                ends = np.cumsum([len(i) for i in by_path.values()])
+                ests = self.fleet.um_level_window_query_groups(
+                    epochs, ks, [(p, np.arange(b - len(i), b)) for (p, i), b
+                                 in zip(by_path.items(), ends)],
+                    failures=failures)
+                with obs.span("hash.level_of"):
+                    lvl = H.level_of(ks, level_seed, n_levels)
+                s = um_gsum_device(ests, lvl, _g_entropy, k_heavy=k_heavy)
                 if total <= 0:
                     return 0.0
                 return float(np.log2(total) - s / total)

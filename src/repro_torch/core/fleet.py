@@ -1374,6 +1374,34 @@ class FleetEpochRunner:
             epochs, keys, [(path, np.arange(len(keys)))], level=level,
             single_hop=single_hop, failures=failures)
 
+    def _group_rows(self, epochs: List[int],
+                    groups: Sequence[Tuple[Optional[Sequence[int]],
+                                           np.ndarray]],
+                    bases: Sequence[Optional[np.ndarray]], failures: str):
+        """The liveness table of the grouped window queries: ``(G, E, R)``
+        bool, the rows group ``g``'s keys merge in each of ``epochs``
+        (its structural rows ``bases[g]``, None for all, intersected with
+        each epoch's liveness; a blind epoch selects none), and the
+        ``(G,)`` E / E_observable scales.  ``"recover"`` rebuilds the lost
+        cells once for every group."""
+        if failures == "recover":
+            self.recover(epochs)
+            failures = "mask"
+        col = {e: i for i, e in enumerate(epochs)}
+        n_rows = len(self.frag_order) * self.n_levels
+        table = np.zeros((len(groups), len(epochs), n_rows), bool)
+        scales = np.ones(len(groups))
+        for g, ((path, _), base) in enumerate(zip(groups, bases)):
+            es, sel_by_e, scales[g] = self._liveness_sels(epochs, base,
+                                                          failures)
+            for e in es:
+                table[g, col[e]] = (sel_by_e[e] if sel_by_e is not None
+                                    else True if base is None else base)
+            if failures != "oblivious" and not table[g].any():
+                raise ValueError(f"window query: path {path} selects "
+                                 "no row of the fleet")
+        return table, scales
+
     def window_query_groups(self, epochs: Sequence[int], keys: np.ndarray,
                             groups: Sequence[Tuple[Optional[Sequence[int]],
                                                    np.ndarray]],
@@ -1392,24 +1420,10 @@ class FleetEpochRunner:
         keys = np.asarray(keys, np.uint32)
         epochs = list(epochs)
         with obs.span("fleet.liveness"):
-            if failures == "recover":
-                self.recover(epochs)
-                failures = "mask"
             col = {e: i for i, e in enumerate(epochs)}
-            n_rows = len(self.frag_order) * self.n_levels
-            # (G, E, R): the rows each group's keys merge in each epoch
-            table = np.zeros((len(groups), len(epochs), n_rows), bool)
-            scales = np.ones(len(groups))
-            for g, (path, _) in enumerate(groups):
-                base = self._row_sel(path, level)
-                es, sel_by_e, scales[g] = self._liveness_sels(epochs, base,
-                                                              failures)
-                for e in es:
-                    table[g, col[e]] = (sel_by_e[e] if sel_by_e is not None
-                                        else True if base is None else base)
-                if failures != "oblivious" and not table[g].any():
-                    raise ValueError(f"window query: path {path} selects "
-                                     "no row of the fleet")
+            table, scales = self._group_rows(
+                epochs, groups, [self._row_sel(p, level) for p, _ in groups],
+                failures)
             order = np.concatenate([np.asarray(i, np.int64)
                                     for _, i in groups]
                                    or [np.zeros(0, np.int64)])
@@ -1447,53 +1461,87 @@ class FleetEpochRunner:
         batch: the per-level inputs of the §6.2 G-sum / entropy
         estimators, as ``(n_levels, K)`` float64 ``merge="fragment"``
         window estimates (level ``l``'s row means something only for keys
-        with ``level_of(key) >= l``; the G-sum masks the rest).
-
-        Resident window epochs are answered by one batched gather/merge
-        over the window's row groups (``kernels.sketch_query
-        .um_window_query_device``); epochs whose window the record plane
-        has copied to the host go through ``query.fleet_query_window``
-        level by level on its host groups.  ``failures`` is the churn
-        policy of ``window_query``; liveness is per fragment, so a dead
-        switch masks all its level rows at once.
+        with ``level_of(key) >= l``; the G-sum masks the rest).  The
+        one-group case of ``um_level_window_query_groups``, copied to the
+        host.
         """
-        from ..kernels.sketch_query import um_window_query_device
+        keys = np.asarray(keys, np.uint32)
+        est = self.um_level_window_query_groups(
+            epochs, keys, [(path, np.arange(len(keys)))], failures=failures)
+        with obs.span("query.estimates.wait"):
+            return est.cpu().numpy()
+
+    def um_level_window_query_groups(
+            self, epochs: Sequence[int], keys: np.ndarray,
+            groups: Sequence[Tuple[Optional[Sequence[int]], np.ndarray]],
+            failures: str = "mask") -> torch.Tensor:
+        """``um_level_window_query`` for several paths at once: ``groups``
+        lists ``(path, idxs)``, the keys ``keys[idxs]`` travelling
+        ``path``.  Each resident window is answered by one gather of
+        every key's own on-path (epoch, fragment, level) slots, whatever
+        their paths (``kernels.sketch_query.um_window_query_groups_device``):
+        each key merges the live fragments of its own path, an epoch blind
+        to that path adds nothing, and the E / E_observable scale is the
+        path's.  Epochs whose window the record plane has copied to the
+        host go through ``query.fleet_query_window`` level by level, group
+        by group, on its host groups.  ``failures`` is the churn policy of
+        ``window_query``; liveness is per fragment, so a dead switch masks
+        all its level rows at once.
+
+        Every key is in a group.  Returns the ``(n_levels, len(keys))``
+        float64 estimates on ``self.device``: nothing is copied to the
+        host.
+        """
+        from ..kernels.sketch_query import um_window_query_groups_device
         from . import query as Q
 
         if self.kind != "um":
             raise ValueError("um_level_window_query needs a UnivMon fleet, "
                              f"this one is {self.kind!r}")
         keys = np.asarray(keys, np.uint32)
+        epochs = list(epochs)
         L = self.n_levels
         with obs.span("fleet.liveness"):
-            frag_sel = None
-            if path is not None:
-                on_path = set(path)
-                frag_sel = np.array([sw in on_path
-                                     for sw in self.frag_order])
-            # liveness in row space, projected back to fragments for the
-            # device: a fragment's level rows are all live or all masked
-            row_base = None if frag_sel is None else np.repeat(frag_sel, L)
-            epochs, row_sel_by_e, scale = self._liveness_sels(
-                epochs, row_base, failures)
-            device_groups, host_epochs = self._route_epochs(epochs)
-        out = np.zeros((L, len(keys)))
-        for groups, es in device_groups:
-            sel = frag_sel if row_sel_by_e is None else \
-                np.stack([row_sel_by_e[e][::L] for e in es])
-            out += um_window_query_device(
-                groups, [self._params_log[e] for e in es], keys, L,
-                frag_sel=sel)
-        if host_epochs:
-            stacks = [self._host_groups(e) for e in host_epochs]
-            params = [self._params_log[e] for e in host_epochs]
+            col = {e: i for i, e in enumerate(epochs)}
+            # liveness is per fragment: a fragment's level rows are all
+            # live or all masked, so the table projects to (G, E, F)
+            table, scales = self._group_rows(
+                epochs, groups,
+                [None if p is None else
+                 np.repeat(np.isin(self.frag_order, list(p)), L)
+                 for p, _ in groups], failures)
+            gid = np.full(len(keys), -1)
+            for g, (_, idxs) in enumerate(groups):
+                gid[idxs] = g
+            if (gid < 0).any():
+                raise ValueError(f"{int((gid < 0).sum())} keys are in no "
+                                 "path group")
+            device_groups, host_epochs = self._route_epochs(
+                [e for e in epochs if table[:, col[e]].any()])
+        est = torch.zeros((L, len(keys)), dtype=torch.float64,
+                          device=self.device)
+        for stack, es in device_groups:
+            est += um_window_query_groups_device(
+                stack, [self._params_log[e] for e in es], keys, L,
+                table[:, [col[e] for e in es], ::L], gid, chunk=QUERY_CHUNK)
+        for g in range(len(groups)) if host_epochs else ():
+            hs = [e for e in host_epochs if table[g, col[e]].any()]
+            if not hs:
+                continue
+            mine = np.flatnonzero(gid == g)
+            stacks = [self._host_groups(e) for e in hs]
+            params = [self._params_log[e] for e in hs]
+            host = np.zeros((L, len(mine)))
             for level in range(L):
-                sel = self._row_sel(path, level) if row_sel_by_e is None \
-                    else [row_sel_by_e[e] & (self.row_levels == level)
-                          for e in host_epochs]
-                out[level] += Q.fleet_query_window(
-                    stacks, params, None, keys, "um", frag_sel=sel)
-        return out * scale if scale != 1.0 else out
+                host[level] = Q.fleet_query_window(
+                    stacks, params, None, keys[mine], "um",
+                    frag_sel=[table[g, col[e]] & (self.row_levels == level)
+                              for e in hs])
+            est[:, torch.as_tensor(mine, device=est.device)] += \
+                torch.as_tensor(host, device=est.device)
+        if (scales != 1.0).any():
+            est *= torch.as_tensor(scales[gid], device=est.device)
+        return est
 
     def cell_counters(self, epoch: int, sw: int) -> np.ndarray:
         """One (epoch, switch) cell of a retained window as an exact int32

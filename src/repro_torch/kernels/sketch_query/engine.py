@@ -24,21 +24,25 @@ the merge sees them in single-device row order, so the estimates are
 bit-identical to the unsharded fleet's.  The port's windows are row
 groups over the unpadded row space, so it needs no pad rows.
 
-UnivMon (§6.2): ``um_window_query_device`` runs the same gather over
-every (epoch, fragment, level) row and the median over the fragments of
-each level, returning ``(n_levels, K)`` estimates; ``um_gsum_device`` runs
-the top-down G-sum over them on the device.
+UnivMon (§6.2): ``um_window_query_groups_device`` gathers, for keys on
+several paths at once, only each key's own (epoch, on-path fragment,
+level) slots, takes the median over the fragments of each level and
+leaves the ``(n_levels, K)`` estimates on the device, where
+``um_gsum_device`` runs the top-down G-sum over them;
+``um_window_query_device`` is its one-path case, copied to the host.
 
 The reference's version is XLA, not Pallas, so it needs no hand-written
-kernel.  Only the ``(K,)`` estimates cross back to the host.  Keys are not
-padded to power-of-two buckets: eager PyTorch compiles nothing per shape.
+kernel.  Only the estimates (or the G-sum's scalar) cross back to the
+host.  Keys are not padded to power-of-two buckets: eager PyTorch
+compiles nothing per shape.
 
 Each entry point runs in three stages: every host input (keys, seeds,
 ``n``/width tables, row positions, masks) is uploaded first, in one pass
 over the row groups; the device compute then runs under
 ``sanitize.transfer_guard()`` (armed by ``REPRO_SANITIZE=1``: any op in it
 that makes the host wait for the card raises); the estimates are copied
-out after the guard.  The host boundary of this module is exactly its
+out after the guard (the UnivMon grouped query leaves them on the
+device).  The host boundary of this module is exactly its
 entry points and ``_prep_window_params`` (host tables only).
 
 Exactness: counters are exact integers in f32 and the x``n`` scaling is a
@@ -282,12 +286,21 @@ def _gather_groups(staged, e_count: int, n_rows: int, n_keys: int,
     return raw
 
 
+def _whole_fragments(n_rows: int, n_levels: int) -> int:
+    """Fragments in ``n_rows`` UnivMon level rows, fragment-major."""
+    if n_levels < 1 or n_rows % n_levels:
+        raise ValueError(f"{n_rows} rows are not whole fragments of "
+                         f"{n_levels} levels")
+    return n_rows // n_levels
+
+
 def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
                            keys: np.ndarray, n_levels: int,
                            frag_sel: Optional[np.ndarray] = None,
                            ) -> np.ndarray:
     """All ``n_levels`` UnivMon Count-Sketch window estimates for a key
-    batch in one batched pass (the §6.2 G-sum inputs).
+    batch on one path (the §6.2 G-sum inputs): the one-group case of
+    ``um_window_query_groups_device``, its estimates copied to the host.
 
     Args:
       stack: a resident window with ``n_levels`` virtual rows per
@@ -300,13 +313,70 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
         (the level axis is structural, not a mask); every epoch must keep
         a fragment.
 
-    One gather covers every (epoch, fragment, level) row; the rows are
-    reshaped to ``(E * L, F, K)``, epoch-major with the level inside, so
-    ``_masked_merge``'s median runs over the fragments of each (epoch,
-    level), and the epochs are summed.  Returns ``(n_levels, K)`` float64
-    ``merge="fragment"`` window estimates; level ``l``'s row means
-    something for keys with ``level_of >= l``.  No §4.4 average: the G-sum
-    queries without single-hop records, as the host ``um_gsum_window``.
+    Returns ``(n_levels, K)`` float64 ``merge="fragment"`` window
+    estimates; level ``l``'s row means something for keys with
+    ``level_of >= l``.
+    """
+    e_count = len(params_by_epoch)
+    n_frags = _whole_fragments(len(params_by_epoch[0]), n_levels)
+    sel = (np.ones(n_frags, bool) if frag_sel is None
+           else np.asarray(frag_sel, bool))
+    sel2 = np.atleast_2d(sel)
+    if sel2.shape[-1] != n_frags or sel2.shape[0] not in (1, e_count):
+        raise ValueError(f"frag_sel {sel.shape} is not ({n_frags},) "
+                         f"or ({e_count}, {n_frags})")
+    if not sel2.any(axis=1).all():
+        bad = np.flatnonzero(~sel2.any(axis=1))
+        raise ValueError(
+            "um_window_query_device: no on-path fragment selected "
+            f"(epoch offsets {bad.tolist()} of {e_count}) — an "
+            "all-masked merge has no survivor")
+    est = um_window_query_groups_device(
+        stack, params_by_epoch, keys, n_levels,
+        np.broadcast_to(sel2, (e_count, n_frags))[None],
+        np.zeros(len(keys), np.int64))
+    # (L, K) estimates: the only counter-derived bytes that leave the device
+    with obs.span("query.estimates.wait"):
+        return est.cpu().numpy()
+
+
+def um_window_query_groups_device(stack,
+                                  params_by_epoch: Sequence[np.ndarray],
+                                  keys: np.ndarray, n_levels: int,
+                                  frag_sel: np.ndarray,
+                                  key_group: np.ndarray,
+                                  chunk: int = 1 << 16) -> torch.Tensor:
+    """All ``n_levels`` UnivMon Count-Sketch window estimates of keys on
+    several paths, in one pass over a resident window, left on the device
+    for the G-sum.
+
+    Args:
+      stack, params_by_epoch: as for ``um_window_query_device``; each
+        fragment's level rows lie in one row group.
+      keys: (K,) uint32 key batch.
+      frag_sel: (G, E, F) bool: the fragments group ``g``'s keys merge in
+        each epoch (on its path and live).  An epoch that selects none of
+        them adds nothing to the group's sums.
+      key_group: (K,) indices into ``frag_sel``'s first axis.
+      chunk: keys gathered at once (``core.fleet.QUERY_CHUNK``), which
+        bounds the int64 temporaries.
+
+    A key's slots are its own (epoch, fragment, level)s alone: the
+    fragments some epoch selects for its group (its path, padded to the
+    longest, ``M``) and, on the epoch axis, the epochs that select one,
+    in window order (padded to the most, ``E'``), so the float64 epoch
+    sum adds the values a one-group call adds, in its order.  For each
+    row group the device enumerates the (key, on-path fragment) pairs it
+    holds from small per-group tables; their ``E' x L`` slots are hashed
+    and gathered on the group's device, and only the f32 slot estimates
+    cross to the merge device (``_all_gather_rows``), into an
+    ``(E' * L, M, K)`` layout where ``_masked_merge`` takes the median
+    over the path axis.  The ``query.gather`` span counts the ``slots``
+    gathered and the path ``groups`` served.
+
+    Returns ``(n_levels, K)`` float64 estimates on the merge device (the
+    first row group's).  No §4.4 average: the G-sum queries without
+    single-hop records, as the host ``um_gsum_window``.
     """
     with obs.span("query.stage"):
         keys = np.asarray(keys, dtype=np.uint32)
@@ -314,42 +384,179 @@ def um_window_query_device(stack, params_by_epoch: Sequence[np.ndarray],
                   if isinstance(stack, torch.Tensor) else list(stack))
         params, ns, widths = _prep_window_params(groups, params_by_epoch)
         e_count, n_rows = params.shape[:2]
-        if n_levels < 1 or n_rows % n_levels:
-            raise ValueError(f"{n_rows} rows are not whole fragments of "
-                             f"{n_levels} levels")
-        n_frags = n_rows // n_levels
-        frag_sel = (np.ones(n_frags, bool) if frag_sel is None
-                    else np.asarray(frag_sel, bool))
-        sel2 = np.atleast_2d(frag_sel)
-        if sel2.shape[-1] != n_frags or sel2.shape[0] not in (1, e_count):
-            raise ValueError(f"frag_sel {frag_sel.shape} is not ({n_frags},) "
-                             f"or ({e_count}, {n_frags})")
-        if not sel2.any(axis=1).all():
-            bad = np.flatnonzero(~sel2.any(axis=1))
-            raise ValueError(
-                "um_window_query_device: no on-path fragment selected "
-                f"(epoch offsets {bad.tolist()} of {e_count}) — an "
-                "all-masked merge has no survivor")
-        if len(keys) == 0:
-            return np.zeros((n_levels, 0))
+        n_frags = _whole_fragments(n_rows, n_levels)
+        frag_sel = np.asarray(frag_sel, bool)
+        key_group = np.asarray(key_group, np.int64)
+        if frag_sel.ndim != 3 or frag_sel.shape[1:] != (e_count, n_frags) \
+                or key_group.shape != keys.shape:
+            raise ValueError(f"frag_sel {frag_sel.shape} and key_group "
+                             f"{key_group.shape} do not fit {e_count} "
+                             f"epochs of {n_frags} fragments and "
+                             f"{len(keys)} keys")
         dev = groups[0][1].device   # shard 0's, as above
-        staged = _stage_groups(groups, params, ns, widths, keys,
-                               np.repeat(sel2.any(axis=0), n_levels), dev,
-                               mitigate=False)
-        if frag_sel.ndim == 2:   # (E, F) -> the (E * L, F) row layout below
-            frag_sel = np.repeat(frag_sel, n_levels, axis=0)
-        sel = _put(frag_sel, dev, torch.bool)
-    with obs.span("query.gather"), sanitize.transfer_guard():
-        raw = _gather_groups(staged, e_count, n_rows, len(keys), dev,
-                             signed=True)
-        raw = (raw.reshape(e_count, n_frags, n_levels, -1).transpose(1, 2)
-               .reshape(e_count * n_levels, n_frags, -1))
-        merged = _masked_merge(raw, sel, kind="um")        # (E * L, K)
-        est = merged.reshape(e_count, n_levels, -1).to(torch.float64).sum(
-            dim=0)
-    # (L, K) estimates: the only counter-derived bytes that leave the device
-    with obs.span("query.estimates.wait"):
-        return est.cpu().numpy()
+        if len(keys) == 0:
+            return torch.zeros((n_levels, 0), dtype=torch.float64,
+                               device=dev)
+        staged, n_slots = _stage_um_slots(groups, params, ns, widths,
+                                          frag_sel, keys, key_group,
+                                          n_levels, chunk, dev)
+    with obs.span("query.gather", slots=n_slots, groups=len(frag_sel)), \
+            sanitize.transfer_guard():
+        return _gather_um_slots(staged, n_levels, len(keys), chunk, dev)
+
+
+def _stage_um_slots(groups, params: np.ndarray, ns: np.ndarray,
+                    widths: np.ndarray, frag_sel: np.ndarray,
+                    keys: np.ndarray, key_group: np.ndarray, n_levels: int,
+                    chunk: int, dev: torch.device):
+    """Upload what ``_gather_um_slots`` reads, once a query and before
+    any compute.  On each row group's device: the keys and ``key_group``,
+    each group's slot epochs ``(G, E')``, the window's per-(epoch,
+    fragment, level) seeds, and per (fragment, level) its ``n_sub``,
+    width and row position in its group.  For each row group that holds
+    an on-path fragment: per path group, how many of its path's
+    fragments it holds (``cnt``) and which (``frag``), on its device, and
+    their path positions (``pos``) on the merge device.  On the merge
+    device: ``key_group`` and the ``(G, E', M)`` slot selection.
+    Returns ``(staged, slots)``, ``slots`` the (epoch, fragment, level,
+    key) slots the pass gathers."""
+    L = n_levels
+    n_frags = frag_sel.shape[2]
+    on = frag_sel.any(axis=1)                              # (G, F)
+    seen = frag_sel.any(axis=2)                            # (G, E)
+    # the selected first, in order: a group's path and observable epochs;
+    # a pad points at an unselected one, so its selection reads False
+    path = np.argsort(~on, axis=1, kind="stable")[
+        :, :max(int(on.sum(axis=1).max()), 1)]            # (G, M)
+    ep = np.argsort(~seen, axis=1, kind="stable")[
+        :, :max(int(seen.sum(axis=1).max()), 1)]          # (G, E')
+    g = np.arange(len(frag_sel))[:, None, None]
+    sel = frag_sel[g, ep[:, :, None], path[:, None, :]]   # (G, E', M)
+    valid = np.take_along_axis(on, path, axis=1)          # (G, M)
+    # each fragment's level rows: their row group and positions in it
+    frag_rows = np.arange(n_frags * L).reshape(n_frags, L)
+    owner = np.zeros(n_frags * L, np.int64)
+    local = np.zeros(n_frags * L, np.int64)
+    for i, (rows, _) in enumerate(groups):
+        owner[rows] = i
+        local[rows] = np.arange(len(rows))
+    owner = owner[frag_rows]
+    if (owner != owner[:, :1]).any():
+        raise ValueError("a fragment's level rows span row groups")
+    owner = owner[:, 0]
+    n_keys = len(keys)
+    starts = np.append(np.arange(0, n_keys, chunk), n_keys)
+    # host arrays by device, uploaded below in one copy a device
+    host = {dev: {"kg": key_group, "sel": sel}}
+    rgs, slots = [], 0
+    for i, (_, counters) in enumerate(groups):
+        in_rg = valid & (owner[path] == i)                # (G, M)
+        cnt = in_rg.sum(axis=1)
+        if not cnt.any():
+            continue
+        pos = np.argsort(~in_rg, axis=1, kind="stable")[:, :int(cnt.max())]
+        cum = np.append(0, np.cumsum(cnt[key_group]))
+        slots += sel.shape[1] * L * int(cum[-1])
+        gdev = counters.device
+        t = host.setdefault(gdev, {"kg": key_group})
+        t.setdefault("keys", keys)
+        t.update(ep=ep, col=params[:, frag_rows, PARAM_COL_SEED],
+                 sign=params[:, frag_rows, PARAM_SIGN_SEED],
+                 sub=params[:, frag_rows, PARAM_SUB_SEED],
+                 ns=ns[frag_rows], widths=widths[frag_rows],
+                 loc=local[frag_rows])
+        t[f"cnt{i}"] = host[dev][f"cnt{i}"] = cnt
+        t[f"frag{i}"] = np.take_along_axis(path, pos, axis=1)
+        host[dev][f"pos{i}"] = pos
+        rgs.append((i, counters, np.diff(cum[starts])))
+    up = {d: _put_many(arrays, d) for d, arrays in host.items()}
+    merge = up[dev]
+    merge["sel"] = merge["sel"].bool()
+    return ([(counters, up[counters.device], up[counters.device][f"cnt{i}"],
+              up[counters.device][f"frag{i}"], merge[f"cnt{i}"],
+              merge[f"pos{i}"], n_by_chunk)
+             for i, counters, n_by_chunk in rgs], merge), slots
+
+
+def _put_many(arrays: dict, dev: torch.device) -> dict:
+    """Host arrays (by name) on ``dev`` as int64, in one upload counted
+    on the open span.  On a card the upload is page-locked and enqueued,
+    so it does not wait for the work already queued there (a window's
+    staging overlaps the previous window's gather)."""
+    flat = {k: np.asarray(a, np.int64) for k, a in arrays.items()}
+    buf = torch.as_tensor(np.concatenate([a.ravel() for a in flat.values()]))
+    if dev.type == "cuda":
+        buf = buf.pin_memory()
+    obs.add("bytes", buf.nbytes)
+    parts = buf.to(dev, non_blocking=True).split(
+        [a.size for a in flat.values()])
+    return {k: x.view(a.shape) for (k, a), x in zip(flat.items(), parts)}
+
+
+def _slot_pairs(kg: torch.Tensor, cnt: torch.Tensor, n: int):
+    """The ``n`` (key, slot) pairs of a key chunk whose groups ``kg`` hold
+    ``cnt[group]`` slots each, key-major: ``(key, its group, the slot's
+    rank among the key's)``.  Pure indexing: ``n`` comes from the host,
+    so nothing waits for the card."""
+    per_key = cnt[kg]
+    key = torch.repeat_interleave(per_key, output_size=n)
+    first = torch.cumsum(per_key, 0) - per_key
+    return key, kg[key], torch.arange(n, device=kg.device) - first[key]
+
+
+def _gather_slots(counters: torch.Tensor, t, key: torch.Tensor,
+                  ep: torch.Tensor, frag: torch.Tensor,
+                  n_levels: int) -> torch.Tensor:
+    """``(E', L, n)`` raw estimates (signed, x n scaled) of ``n`` (key,
+    fragment) pairs at every level and slot epoch, from one row group's
+    ``(E, R_g, S, W)`` counters; ``t`` the device's tables, ``key`` (n,)
+    indices into its keys, ``ep`` (n, E') the pairs' slot epochs and
+    ``frag`` (n,) their fragments."""
+    lvl = torch.arange(n_levels, device=counters.device)[None, :, None]
+    e = ep.T[:, None, :]
+    f = frag[None, None, :]
+    k = t["keys"][key][None, None, :]
+    n_sub = t["ns"][f, lvl]
+    col = hash_mod_torch(k, t["col"][e, f, lvl], t["widths"][f, lvl])
+    sub = hash_pow2_torch(k, t["sub"][e, f, lvl], n_sub)
+    raw = counters[e, t["loc"][f, lvl], sub, col]
+    raw = raw * hash_sign_torch(k, t["sign"][e, f, lvl]).to(torch.float32)
+    # proportional scaling to the epoch (x n, §1): exact in f32
+    return raw * n_sub.to(torch.float32)
+
+
+def _gather_um_slots(staged, n_levels: int, n_keys: int, chunk: int,
+                     dev: torch.device) -> torch.Tensor:
+    """The on-path pass over ``_stage_um_slots``'s uploads, ``chunk``
+    keys at a time: each row group's slots gathered on its device, laid
+    out ``(E', L, M, keys)`` on ``dev``, the +inf-masked median over the
+    path axis and the float64 epoch sum.  Device compute only: it uploads
+    nothing and reads nothing back."""
+    rgs, merge = staged
+    e_obs, m = merge["sel"].shape[1:]
+    est = torch.empty((n_levels, n_keys), dtype=torch.float64, device=dev)
+    for ci, s in enumerate(range(0, n_keys, chunk)):
+        c = min(chunk, n_keys - s)
+        raw = torch.empty((e_obs, n_levels, m * c), dtype=torch.float32,
+                          device=dev)
+        for counters, t, cnt, frag, cnt_m, pos, n_by_chunk in rgs:
+            n = int(n_by_chunk[ci])
+            if not n:
+                continue
+            key, grp, rank = _slot_pairs(t["kg"][s:s + c], cnt, n)
+            part = _gather_slots(counters, t, key + s, t["ep"][grp],
+                                 frag[grp, rank], n_levels)
+            if counters.device != dev:   # the same pairs, on the merge side
+                key, grp, rank = _slot_pairs(merge["kg"][s:s + c], cnt_m, n)
+            raw[:, :, pos[grp, rank] * c + key] = _all_gather_rows(part, dev)
+        sel = merge["sel"][merge["kg"][s:s + c]].permute(1, 2, 0)
+        sel = sel[:, None].expand(e_obs, n_levels, m, c).reshape(
+            e_obs * n_levels, m, c)
+        merged = _masked_merge(raw.view(e_obs * n_levels, m, c), sel,
+                               kind="um")                  # (E' * L, c)
+        est[:, s:s + c] = merged.reshape(e_obs, n_levels, c).to(
+            torch.float64).sum(dim=0)
+    return est
 
 
 def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
@@ -371,7 +578,8 @@ def um_gsum_device(ests, lvl: np.ndarray, g, k_heavy: int = 1024,
         else:
             dev = resolve_device(device)
             est_all = torch.as_tensor(np.asarray(ests, np.float32), device=dev)
-        lv = torch.as_tensor(np.asarray(lvl, np.int64), device=dev)
+        # enqueued: the estimates may still be in the making on the card
+        lv = _put_many({"lv": lvl}, dev)["lv"]
         n_levels, n_keys = est_all.shape
         k = min(int(k_heavy), n_keys)
         neg_inf = float("-inf")

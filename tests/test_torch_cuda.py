@@ -307,6 +307,60 @@ def test_univmon_query_plane_on_card(cuda_device):
         um_gsum_device(ests, lvl, lambda x: x, k_heavy=100, device="cpu")
 
 
+# arming the guard sets torch's CUDA sync debug mode, which warns that it
+# is a prototype
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode:UserWarning")
+def test_univmon_grouped_gather_on_card(cuda_device, monkeypatch):
+    """On a §6.1-sized UnivMon window (FatTree(4), 200 000 flows and 2 M
+    packets over 32 epochs, its first window of 8, 16 levels, Gini-0.4
+    memories) on the card: the grouped on-path gather over every path
+    group, run under the armed transfer guard (nothing in it waits for
+    the card), equals the one-group calls bit for bit, and a 5-, a 3- and
+    a 1-hop group's estimates equal the host per-level oracle on the
+    window's host copy within 1e-6."""
+    from repro_torch import sanitize
+    from repro_torch.core import query as Q
+    from repro_torch.core.disketch import DiSketchSystem
+    from repro_torch.net.simulator import Replayer
+    from repro_torch.net.topology import FatTree
+    from repro_torch.net.traffic import gen_workload, gini_memories
+
+    topo = FatTree(4)
+    wl = gen_workload(topo, n_flows=200_000, total_packets=2_000_000,
+                      n_epochs=32, log2_te=16, burstiness=0.2, seed=1)
+    rep = Replayer(wl, topo.n_switches)
+    mems = gini_memories(topo.n_switches, 128 * 1024, 0.4,
+                         np.random.RandomState(101))
+    system = DiSketchSystem({sw: int(m) for sw, m in enumerate(mems)},
+                            "um", rho_target=63.31, log2_te=16,
+                            n_levels=16, device=cuda_device)
+    epochs = list(range(8))
+    system.run_window(0, [rep.epoch_stream(e) for e in epochs])
+    fleet = system.fleet
+    by_path = Q.path_groups(wl.paths)
+    ks = np.concatenate([wl.keys[i] for i in by_path.values()])
+    ends = np.cumsum([len(i) for i in by_path.values()])
+    groups = [(p, np.arange(b - len(i), b))
+              for (p, i), b in zip(by_path.items(), ends)]
+    monkeypatch.setenv(sanitize._ENV, "1")
+    got = fleet.um_level_window_query_groups(epochs, ks, groups)
+    monkeypatch.setenv(sanitize._ENV, "0")
+    assert got.is_cuda and got.shape == (16, len(wl.keys))
+    got = got.cpu().numpy()
+    one = np.concatenate([fleet.um_level_window_query(epochs, ks[i], path=p)
+                          for p, i in groups], axis=1)
+    np.testing.assert_array_equal(got, one)
+    host = [fleet._window_bufs[0][0].host_epoch(e) for e in epochs]
+    params = [fleet._params_log[e] for e in epochs]
+    for hops in (5, 3, 1):
+        path, idx = next((p, i) for p, i in groups if len(p) == hops)
+        for level in range(16):
+            want = Q.fleet_query_window(host, params, None, ks[idx], "um",
+                                        frag_sel=fleet._row_sel(path, level))
+            np.testing.assert_allclose(got[level, idx], want, rtol=1e-6,
+                                       atol=1e-6)
+
+
 def test_aggregated_sketches_on_card(cuda_device):
     """``core/sketches.py`` on the card: ``index_add_`` of int64 adds
     (exact, in any order) gives the CPU's counters bit for bit, and the

@@ -249,10 +249,18 @@ def test_query_planes_emit_their_spans(fleet_run):
     assert [s.name for s in roots] == ["disketch.query_entropy"]
     n_groups = len(query.path_groups(wl.paths))
     assert roots[0].counts == {"path_groups": n_groups}
-    assert set(QUERY) | {"hash.level_of", "query.gsum",
-                         "query.gsum.wait"} <= set(names)
-    assert (names["hash.level_of"] == names["query.estimates.wait"]
-            == names["fleet.liveness"] == n_groups)
+    # one liveness table, one level hash and one on-path gather a query
+    # for every path group; the estimates stay on the card for the G-sum
+    assert set(QUERY) - {"query.estimates.wait"} | {
+        "hash.level_of", "query.gsum", "query.gsum.wait"} <= set(names)
+    assert "query.estimates.wait" not in names
+    assert (names["hash.level_of"] == names["fleet.liveness"]
+            == names["query.gather"] == 1)
+    gather = next(s for s in ent if s.name == "query.gather")
+    on_path = [sum(sw in p for sw in system.fleet.frag_order)
+               for p in wl.paths]
+    assert gather.counts == {"slots": WINDOW * N_LEVELS * sum(on_path),
+                             "groups": n_groups}
     gsum = next(s for s in ent if s.name == "query.gsum")
     assert next(s for s in ent if s.name == "query.gsum.wait").parent \
         == gsum.id

@@ -268,9 +268,9 @@ def _queries(system, wl):
 
 def _check_against_reference(reference_engine, recorders):
     """Every armed engine call against the reference's engine on the same
-    window: bit-equal estimates (per key group for ``key_group`` calls;
-    the reference has no such argument, so each group is its own call over
-    the epochs it selects), the G-sum within the f32 rounding of two
+    window: bit-equal estimates (per key group for ``key_group`` calls and
+    UnivMon's grouped calls; the reference has no such argument, so each
+    group is its own call over the epochs it selects), the G-sum within the f32 rounding of two
     ``log2``s (``tests/test_torch_univmon.py``'s 1e-6)."""
     n = 0
     for args, kw, armed, out in recorders["fleet_window_query_device"].calls:
@@ -306,6 +306,24 @@ def _check_against_reference(reference_engine, recorders):
                                     n_levels=n_levels, sel=sel)
             np.testing.assert_array_equal(out, want)
             n += 1
+    for args, kw, armed, out in recorders[
+            "um_window_query_groups_device"].calls:
+        if not armed:
+            continue
+        groups, params, keys, n_levels, sel, kg = args
+        stack, params = _dense(groups), np.stack(params)
+        out = out.cpu().numpy()
+        for g in np.unique(kg):
+            idx, es = np.flatnonzero(kg == g), np.flatnonzero(
+                sel[g].any(axis=1))
+            if not len(es):
+                assert not out[:, idx].any()
+                continue
+            want = reference_engine("um", stack=stack[es], params=params[es],
+                                    keys=keys[idx], n_levels=n_levels,
+                                    sel=sel[g][es])
+            np.testing.assert_array_equal(out[:, idx], want)
+        n += 1
     for args, kw, armed, out in recorders["um_gsum_device"].calls:
         if armed:
             ests, lvl = args[:2]
@@ -333,7 +351,7 @@ def test_query_plane_clean_under_armed_guard(monkeypatch, reference_engine,
     assert system.fleet.has_device_window(range(wl.n_epochs))
     recorders = {name: _Recorder(monkeypatch, name) for name in (
         "fleet_window_query_device", "um_window_query_device",
-        "um_gsum_device")}
+        "um_window_query_groups_device", "um_gsum_device")}
     monkeypatch.setenv(sanitize._ENV, "1")
     armed = _queries(system, wl)
     monkeypatch.setenv(sanitize._ENV, "0")
@@ -346,6 +364,8 @@ def test_query_plane_clean_under_armed_guard(monkeypatch, reference_engine,
     if kind != "um":
         assert any(kw.get("key_group") is not None for _, kw, _, _ in
                    recorders["fleet_window_query_device"].calls)
+    else:
+        assert recorders["um_window_query_groups_device"].calls
     assert _check_against_reference(reference_engine, recorders) \
         == calls // 2
     if shards > 1:

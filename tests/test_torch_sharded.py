@@ -13,8 +13,9 @@ is ``array_equal`` or ``==``, never allclose:
 * the reference's seven sharded tests carried over at the same fleet
   (6 switches, memories 2048 and 4096, ``log2_te = 12``, the same
   streams), with a one-shard mesh beside 2, 4 and 8;
-* the bytes that cross shards at query time: only the ``(E, R_g, K)`` f32
-  estimate slices pass through ``engine._all_gather_rows``;
+* the bytes that cross shards at query time: only the f32 estimate
+  slices (``(E, R_g, K)`` rows, UnivMon's on-path slots) pass through
+  ``engine._all_gather_rows``;
 * the control, export and chaos planes over a two-shard fleet under the
   settings of ``tests/test_torch_chaos.py``, and ``Replayer.run`` with
   churn inside windows and shard-local parity groups;
@@ -258,8 +259,9 @@ def test_mesh_requires_fleet_backend_and_switch_axis():
 @pytest.mark.parametrize("kind", ["cs", "um"])
 def test_only_estimate_slices_cross_shards(kind, monkeypatch):
     """Every tensor that reaches the merge device from a shard is a
-    gathered ``(E, R_g, K)`` f32 estimate slice, one per row group that a
-    query needs; no counter group passes."""
+    gathered f32 estimate slice, one per row group that a query needs
+    (``(E, R_g, K)`` rows, or UnivMon's ``(E, L, pairs)`` on-path
+    slots); no counter group passes."""
     kw = dict(n_levels=4) if kind == "um" else {}
     ref, sh = _pair(kind, 4, **kw)
     _run_both(ref, sh)
@@ -288,10 +290,13 @@ def test_only_estimate_slices_cross_shards(kind, monkeypatch):
     assert np.array_equal(
         est, ref.query_flows(KEYS, paths, EPOCHS, merge="fragment"))
     if kind == "um":
+        # the level query gathers each key's (epoch, level) slots of every
+        # on-path fragment: (E, L, K x the group's fragments) a row group
         moved.clear()
         sh.fleet.um_level_window_query(EPOCHS, KEYS)
         assert sorted(s for s, _ in moved) == sorted(
-            (len(EPOCHS), len(rows), len(KEYS)) for rows, _ in groups)
+            (len(EPOCHS), L, len(KEYS) * len(rows) // L)
+            for rows, _ in groups)
     # the bytes moved are the estimate slices' alone, far below the
     # resident counters'
     moved_bytes = sum(4 * int(np.prod(s)) for s, _ in moved)

@@ -37,13 +37,16 @@ from repro.net.simulator import Replayer as RReplayer
 from repro.net.topology import FatTree as RFatTree
 from repro.net.traffic import gen_workload as r_gen_workload
 from repro.net.traffic import gini_memories as r_gini_memories
+from repro_torch import obs
+from repro_torch.core import fleet as fleet_module
 from repro_torch.core import query as Q
-from repro_torch.core.disketch import DiSketchSystem, calibrate_rho_target
+from repro_torch.core.disketch import (DiSketchSystem, _g_entropy,
+                                       calibrate_rho_target)
 from repro_torch.core.hashing import level_of
 from repro_torch.core.sketches import true_entropy
 from repro_torch.kernels.sketch_query import (um_gsum_device,
                                               um_window_query_device)
-from repro_torch.net.simulator import Replayer, rmse
+from repro_torch.net.simulator import FailureSchedule, Replayer, rmse
 from repro_torch.net.topology import FatTree
 from repro_torch.net.traffic import (cov_list, gen_workload, gini_memories,
                                      linear_path_workload)
@@ -430,8 +433,9 @@ def test_query_entropy_window_matches_reference(scenario, n_levels):
 
 
 def test_um_level_window_query_refusals(scenario):
-    """A cs fleet has no level stack, and an unknown failure policy is
-    refused, as on the frequency path."""
+    """A cs fleet has no level stack, an unknown failure policy is
+    refused, as on the frequency path, and so is a grouped query with a
+    key in no path group."""
     topo, wl, rep, mems = scenario
     cs = DiSketchSystem(mems, "cs", rho_target=RHO, log2_te=LOG2_TE,
                         device="cpu")
@@ -444,6 +448,9 @@ def test_um_level_window_query_refusals(scenario):
     with pytest.raises(ValueError, match="failure"):
         um.query_entropy(wl.keys[:4], wl.paths[:4], [0], 4.0,
                          failures="sometimes")
+    with pytest.raises(ValueError, match="1 keys are in no path group"):
+        um.fleet.um_level_window_query_groups([0], wl.keys[:4],
+                                              [(None, np.arange(3))])
 
 
 # --- mirrors of tests/test_univmon_fleet.py --------------------------------
@@ -510,6 +517,123 @@ def test_um_device_level_query_matches_host_oracle(path):
             [sysw.fleet._params_log[e] for e in epochs],
             None, keys, "um", frag_sel=sysw.fleet._row_sel(path, level))
     np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
+# --- the grouped on-path gather ---------------------------------------------
+
+#: the grouped-gather cases: no churn, then each policy on a fleet where
+#: switch 3 (on the 5-hop path and its own single hop) dies at epoch 3,
+#: inside the window 2-3, so its epoch-2 cell is lost (parity rebuilds it
+#: under "recover") and the group (3,) is blind in epochs 2 and 3 ("mask")
+UM_CHURN = [None, "mask", "recover", "oblivious"]
+
+
+def _grouped_um(failures):
+    """A windowed (windows of 2) UnivMon fleet of the 5-hop workload, with
+    switch 3 down from epoch 3 unless ``failures`` is None; parity groups
+    {0, 1, 2} and {3, 4}.  Returns the workload, the system, the churn
+    policy to query with, and every key in ``path_groups`` order as one
+    batch with its ``(path, idxs)`` groups."""
+    wl, rep, mems = _small_workload()
+    s = DiSketchSystem(mems, "um", rho_target=4.0, log2_te=wl.log2_te,
+                       n_levels=N_LEVELS, device="cpu",
+                       fleet_kwargs={"parity_groups": [[0, 1, 2], [3, 4]]})
+    rep.run(s, window=2, failures=None if failures is None else
+            FailureSchedule(5, downs={3: (3, None)}))
+    by_path = Q.path_groups(wl.paths)
+    ks = np.concatenate([wl.keys[i] for i in by_path.values()])
+    ends = np.cumsum([len(i) for i in by_path.values()])
+    groups = [(p, np.arange(b - len(i), b))
+              for (p, i), b in zip(by_path.items(), ends)]
+    return wl, s, failures or "mask", ks, groups
+
+
+@pytest.mark.parametrize("failures", UM_CHURN)
+def test_um_grouped_gather_equals_one_group_calls(monkeypatch, failures):
+    """The grouped on-path gather's (L, K) estimates equal, bit for bit,
+    the one-group calls over the same path groups, concatenated: with and
+    without churn, under each policy, with a group blind in two epochs
+    and key chunks of 7 that cut through the groups; and in any order of
+    the batch."""
+    monkeypatch.setattr(fleet_module, "QUERY_CHUNK", 7)
+    wl, s, policy, ks, groups = _grouped_um(failures)
+    epochs = list(range(wl.n_epochs))
+    got = s.fleet.um_level_window_query_groups(epochs, ks, groups,
+                                               failures=policy)
+    assert got.dtype == torch.float64 and got.shape == (N_LEVELS, len(ks))
+    want = np.concatenate([s.fleet.um_level_window_query(
+        epochs, ks[i], path=p, failures=policy) for p, i in groups], axis=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+    # the batch's order is the caller's: shuffled keys, shuffled estimates
+    perm = np.random.RandomState(0).permutation(len(ks))
+    at = np.argsort(perm)
+    shuffled = s.fleet.um_level_window_query_groups(
+        epochs, ks[perm], [(p, at[i]) for p, i in groups], failures=policy)
+    np.testing.assert_array_equal(shuffled.numpy(), want[:, perm])
+    blind = s.fleet.um_level_window_query(epochs, ks[:3], path=(3,),
+                                          failures=policy)
+    seen = s.fleet.last_observability["observable_epochs"]
+    assert seen == {None: 4, "mask": 2, "recover": 3, "oblivious": 4}[
+        failures]
+    assert np.isfinite(blind).all()
+
+
+@pytest.mark.parametrize("failures", UM_CHURN)
+def test_um_entropy_is_the_gsum_of_the_grouped_estimates(failures):
+    """``query_entropy(merge="fragment")`` is exactly the device G-sum of
+    the one-group estimates concatenated in ``path_groups`` order."""
+    wl, s, policy, ks, groups = _grouped_um(failures)
+    epochs = list(range(wl.n_epochs))
+    total = float(wl.sizes.sum())
+    got = s.query_entropy(wl.keys, wl.paths, epochs, total,
+                          n_levels=N_LEVELS, merge="fragment",
+                          failures=policy)
+    ests = np.concatenate([s.fleet.um_level_window_query(
+        epochs, ks[i], path=p, failures=policy) for p, i in groups], axis=1)
+    g = um_gsum_device(ests, level_of(ks, 7777, N_LEVELS), _g_entropy,
+                       device="cpu")
+    assert got == float(np.log2(total) - g / total)
+
+
+def test_um_grouped_gather_counts_on_path_slots():
+    """The ``query.gather`` span of each window counts the (epoch,
+    fragment, level, key) slots of each key's own path, Sum_g E L |path_g|
+    K_g, far below the E R K of a gather of every row, and the path
+    groups it served."""
+    wl, s, policy, ks, groups = _grouped_um(None)
+    epochs = list(range(wl.n_epochs))
+    obs.clear()
+    s.fleet.um_level_window_query_groups(epochs, ks, groups)
+    spans = [x for x in obs.spans() if x.name == "query.gather"]
+    assert len(spans) == 2                               # windows of 2
+    assert all(x.counts["groups"] == len(groups) for x in spans)
+    slots = sum(x.counts["slots"] for x in spans)
+    want = sum(len(epochs) * N_LEVELS * len(p) * len(i) for p, i in groups)
+    assert slots == want
+    assert slots < len(epochs) * 5 * N_LEVELS * len(ks) / 2
+
+
+def test_um_entropy_keeps_estimates_on_the_device(monkeypatch):
+    """The entropy's (L, K) estimates never reach the host: the windows
+    stay resident, no ``query.estimates.wait`` span opens, and the only
+    device tensor that goes to the host is the G-sum's scalar (under the
+    armed guard, which would raise on any other read)."""
+    from repro_torch import sanitize
+
+    wl, s, policy, ks, groups = _grouped_um("mask")
+    epochs = list(range(wl.n_epochs))
+    monkeypatch.setenv(sanitize._ENV, "1")
+    obs.clear()
+    s.query_entropy(wl.keys, wl.paths, epochs, float(wl.sizes.sum()),
+                    n_levels=N_LEVELS, merge="fragment")
+    names = [x.name for x in obs.spans()]
+    assert "query.estimates.wait" not in names
+    assert names.count("query.gsum.wait") == 1
+    assert names.count("fleet.liveness") == names.count("hash.level_of") \
+        == 1
+    assert all(b.resident and b._host is None
+               for b, _ in s.fleet._window_bufs.values())
 
 
 def test_network_monitoring_pipeline_matches_reference():
